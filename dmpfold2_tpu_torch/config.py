@@ -1,0 +1,54 @@
+"""Fold configuration: one dataclass mapped 1:1 onto the CLI flags.
+
+Counterpart of ``dmpfold2_tpu/config.py:FoldConfig``. The port runs one
+precision, ``fp32``, in this slice; the other engines are not ported yet
+(ROADMAP.md, queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+PRECISIONS = ("fp32",)
+NOT_PORTED_PRECISIONS = ("bf16", "fp32_strict")
+
+
+def check_precision(precision: str) -> None:
+    if precision in NOT_PORTED_PRECISIONS:
+        raise NotImplementedError(
+            f"precision {precision!r} is not yet ported to the PyTorch "
+            "package (ROADMAP.md, queue 1 item 6: bf16 engine; fp32_strict "
+            "follows it); use precision='fp32'")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; expected one of "
+                         f"{PRECISIONS + NOT_PORTED_PRECISIONS}")
+
+
+@dataclass
+class FoldConfig:
+    # reference-compatible knobs (dmpfold predict.py:26-28, 169-182)
+    iterations: int | str = 10       # an int, or "auto"
+    minsteps: int = 100
+    device: str | None = None        # None means "cuda"
+    template: str | None = None
+    weights_file: str | None = None
+
+    precision: str = "fp32"
+
+    @classmethod
+    def from_cli_args(cls, args) -> "FoldConfig":
+        template = args.template
+        if isinstance(template, (list, tuple)):
+            template = template[0] if template else None
+        if template == "-":
+            template = None
+        cfg = cls(
+            iterations=args.iterations,
+            minsteps=args.minsteps,
+            device=args.device,
+            template=template,
+            weights_file=args.model_weights,
+        )
+        if getattr(args, "precision", None) is not None:
+            cfg.precision = args.precision
+        return cfg

@@ -1,0 +1,200 @@
+"""The folding engine: from an MSA to a structure on one device.
+
+Counterpart of ``dmpfold2_tpu/engine/fold.py`` for the single-target fp32
+fold. Host code parses and pads; everything after runs on the chosen device:
+one-hot, reweighting, DCA, the network with recycling, refinement and
+backbone completion. On a CUDA device the vertical GRU, the residue GRUs and
+the refinement loop run as hand-written CUDA kernels (``kernels/``); on the
+CPU their plain versions run. Nothing else chooses between them: the device
+of the tensors does.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``, and
+raise if CUDA is missing.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..config import FoldConfig, check_precision
+from ..features.dca import dca_or_zero
+from ..features.msa import msa_one_hot, reweight
+from ..models import gruresnet
+from ..utils import aln as aln_io
+from ..utils import pdb as pdb_io
+from ..weights import load_npz, load_pt, params_to
+from .buckets import bucket_shape
+
+DEFAULT_ITERATIONS = FoldConfig.iterations
+DEFAULT_MINSTEPS = FoldConfig.minsteps
+# `-n auto` recycles until the confidence plateaus, capped here
+AUTO_ITERATIONS_CAP = 30
+AUTO_PATIENCE = 2
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``cuda``; CUDA that is missing raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}: use cuda or cpu")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the PyTorch port runs on the GPU by default; "
+            "pass device='cpu' (CLI: -d cpu) to run its plain versions on the CPU")
+    return dev
+
+
+def use_full_fp32() -> None:
+    """fp32 means fp32: turn TF32 off for matmuls and cuDNN convolutions.
+
+    cuDNN convolutions default to TF32 (about three decimal digits), which the
+    fp32 engine must not use. These are process-wide PyTorch settings.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def fold_padded(params, alnmat: torch.Tensor, nseqs: int, nres: int,
+                dmap_channel: torch.Tensor, nloops: int, refine_steps: int,
+                adaptive: bool = False):
+    """(n_pad, l_pad) int32 alignment on the device -> (coords (l_pad, 5, 3),
+    confidences (l_pad,), recycles run)."""
+    oh = msa_one_hot(alnmat, nseqs, nres)
+    w = reweight(oh, nres)
+    dca = dca_or_zero(oh, w, nseqs, nres)
+    x2 = torch.cat([dca, dmap_channel[:, :, None]], dim=2)
+    del oh, dca
+    return gruresnet.forward(params, alnmat, x2, nseqs, nres, nloops, refine_steps,
+                             adaptive_recycle=adaptive, adaptive_patience=AUTO_PATIENCE)
+
+
+def _build_dmap_channel(l_pad: int, nres: int, template_ca: np.ndarray | None) -> np.ndarray:
+    """Last input channel: template CA distance map, or -1 fill (predict.py:142-145).
+
+    Valid L x L region only; zero outside.
+    """
+    dmap = np.zeros((l_pad, l_pad), np.float32)
+    if template_ca is None:
+        dmap[:nres, :nres] = -1.0
+    else:
+        if template_ca.shape[0] != nres:
+            raise ValueError(
+                f"template has {template_ca.shape[0]} CA atoms but alignment "
+                f"has {nres} residues — lengths must match")
+        diffs = template_ca[:, None, :] - template_ca[None, :, :]
+        dmap[:nres, :nres] = np.sqrt((diffs ** 2).sum(-1))
+    return dmap
+
+
+class Folder:
+    """Holds the parameters on one device and folds single targets."""
+
+    def __init__(self, params, device=None, precision: str = "fp32"):
+        check_precision(precision)
+        self.device = resolve_device(device)
+        use_full_fp32()
+        self.params = params_to(params, self.device)
+        self.precision = precision
+
+    def fold(self, alnmat: np.ndarray, template_ca: np.ndarray | None = None,
+             iterations=DEFAULT_ITERATIONS, minsteps: int = DEFAULT_MINSTEPS):
+        """Fold one target. Returns ((nres, 5, 3) coords, (nres,) confidences).
+
+        ``iterations`` may be ``"auto"``: recycle until the best mean
+        confidence has not improved for 2 recycles, at most
+        ``AUTO_ITERATIONS_CAP``.
+        """
+        coords, confs, _ = self.fold_async(alnmat, template_ca, iterations, minsteps)()
+        return coords, confs
+
+    def fold_async(self, alnmat: np.ndarray, template_ca: np.ndarray | None = None,
+                   iterations=DEFAULT_ITERATIONS, minsteps: int = DEFAULT_MINSTEPS):
+        """Enqueue one fold; returns a callable that fetches
+        ``(coords, confs, recycles run)`` to the host.
+
+        With a fixed ``iterations`` the device work is enqueued without a host
+        round trip per recycle; ``"auto"`` reads each recycle's confidence on
+        the host to decide whether to go on.
+        """
+        adaptive = iterations == "auto"
+        nloops = AUTO_ITERATIONS_CAP if adaptive else max(int(iterations), 0)
+        nseqs, nres = alnmat.shape
+        n_pad, l_pad = bucket_shape(nseqs, nres)
+        aln_p = np.zeros((n_pad, l_pad), np.int32)
+        aln_p[:nseqs, :nres] = alnmat
+        dmap = _build_dmap_channel(l_pad, nres, template_ca)
+        with torch.inference_mode():
+            coords, confs, used = fold_padded(
+                self.params, torch.from_numpy(aln_p).to(self.device), nseqs, nres,
+                torch.from_numpy(dmap).to(self.device), nloops, max(int(minsteps), 0),
+                adaptive=adaptive)
+
+        def fetch():
+            return coords[:nres].cpu().numpy(), confs[:nres].cpu().numpy(), used
+
+        return fetch
+
+
+def _default_weight_paths():
+    modeldir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "trained_model")
+    paths = [os.path.join(modeldir, f"FINAL_fullmap_e2e_model_part{i}.pt") for i in (1, 2)]
+    return modeldir, paths
+
+
+def load_weights(weights_file: str | None = None):
+    """Parameters from ``weights_file`` (``.npz`` or a torch ``.pt`` state
+    dict), or else from ``trained_model/`` inside the package.
+
+    The port has no download path: without a file it raises.
+    """
+    if weights_file is not None:
+        if weights_file.endswith(".npz"):
+            return load_npz(weights_file)
+        return load_pt([weights_file])
+    modeldir, paths = _default_weight_paths()
+    native = os.path.join(modeldir, "params.npz")
+    if os.path.isfile(native):
+        return load_npz(native)
+    if all(os.path.isfile(p) for p in paths):
+        return load_pt(paths)
+    raise FileNotFoundError(
+        f"no model weights: pass -w/--model_weights (.npz or .pt), or place "
+        f"params.npz or the two released FINAL_fullmap_e2e_model_part*.pt files "
+        f"in {modeldir}. The port does not download weights.")
+
+
+def aln_to_coords(input_file: str, device=None, template: str | None = None,
+                  iterations=None, minsteps: int | None = None,
+                  weights_file: str | None = None, return_alnmat: bool = False,
+                  params=None, config: FoldConfig | None = None):
+    """Reference API (predict.py:74): aln file -> ((nres, 5, 3) coords, (nres,) confs).
+
+    ``device`` is a torch device (default ``cuda``). ``params`` skips weight
+    loading. Explicit keyword arguments override ``config``'s fields.
+    """
+    cfg = config or FoldConfig()
+    if iterations is None:
+        iterations = cfg.iterations
+    if minsteps is None:
+        minsteps = cfg.minsteps
+    if template is None:
+        template = cfg.template
+    if weights_file is None:
+        weights_file = cfg.weights_file
+    if device is None:
+        device = cfg.device
+    check_precision(cfg.precision)  # fail before parsing or loading
+    folder_device = resolve_device(device)
+    alnmat = aln_io.parse_aln(input_file)
+    template_ca = pdb_io.parse_template_ca(template) if template is not None else None
+    if params is None:
+        params = load_weights(weights_file)
+    folder = Folder(params, device=folder_device, precision=cfg.precision)
+    coords, confs = folder.fold(alnmat, template_ca, iterations, minsteps)
+    if return_alnmat:
+        return coords, confs, alnmat
+    return coords, confs

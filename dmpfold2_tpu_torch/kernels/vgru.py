@@ -1,0 +1,78 @@
+"""Vertical GRU over MSA rows: CUDA kernel wrapper and its plain version.
+
+Replaces the TPU kernel ``dmpfold2_tpu/kernels/vgru.py:vgru_final_cols_pallas``
+with ``csrc/vgru.cu``. A 2-layer GRU scanned over the alignment rows for
+independent columns (residue positions); each column freezes at its own valid
+depth; returns layer 2's final state (n_cols, H).
+
+On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor it
+runs :func:`vgru_final_cols_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models import gru
+from ..utils.aln import NUM_CLASSES
+from . import _build
+
+launches = 0  # kernel launches since the last reset
+
+
+def vgru_final_cols_plain(layers, aln_cols: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``gru.unigru_stack_final`` on the one-hot rows."""
+    classes = torch.arange(NUM_CLASSES, device=aln_cols.device)
+    x = (aln_cols.long()[..., None] == classes).float()  # a class outside [0, 22) is all zeros
+    return gru.unigru_stack_final(layers, x, col_valid)
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"vgru: {name} must be a contiguous {dtype} tensor of shape "
+                         f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def vgru_final_cols(layers, aln_cols: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
+    """(n_rows, n_cols) int32 alignment, (n_cols,) int32 depths -> (n_cols, H) fp32."""
+    global launches
+    if aln_cols.device.type == "cpu":
+        return vgru_final_cols_plain(layers, aln_cols, col_valid)
+    if len(layers) != 2:
+        raise ValueError("vgru: the kernel runs the reference's 2-layer GRU")
+    device = aln_cols.device
+    n_rows, n_cols = aln_cols.shape
+    hidden = layers[0]["wh"].shape[0]
+    _check(aln_cols, "aln_cols", torch.int32, (n_rows, n_cols), device)
+    _check(col_valid, "col_valid", torch.int32, (n_cols,), device)
+    _check(layers[0]["wi"], "wi1", torch.float32, (NUM_CLASSES, 3 * hidden), device)
+    for i, p in enumerate(layers):
+        for key, shape in (("wh", (hidden, 3 * hidden)), ("bi", (3 * hidden,)),
+                           ("bh", (3 * hidden,))):
+            _check(p[key], f"{key}{i + 1}", torch.float32, shape, device)
+    _check(layers[1]["wi"], "wi2", torch.float32, (hidden, 3 * hidden), device)
+    if hidden % 32 or hidden > 512:
+        raise ValueError(f"vgru: hidden size {hidden} must be a multiple of 32, at most 512")
+    out = torch.empty((n_cols, hidden), dtype=torch.float32, device=device)
+    if n_cols == 0:
+        return out
+    fn = _build.load("vgru")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        l1, l2 = layers
+        err = fn(aln_cols.data_ptr(), col_valid.data_ptr(), n_rows, n_cols, hidden,
+                 l1["wi"].data_ptr(), l1["wh"].data_ptr(), l2["wi"].data_ptr(),
+                 l2["wh"].data_ptr(), l1["bi"].data_ptr(), l1["bh"].data_ptr(),
+                 l2["bi"].data_ptr(), l2["bh"].data_ptr(), out.data_ptr(), stream)
+    launches += 1
+    torch.cuda.check_error(err)
+    return out
+
+
+def vgru_final(layers, alnmat: torch.Tensor, valid_len: int) -> torch.Tensor:
+    """Single target: (N, L) alignment, true depth ``valid_len`` -> (L, H)."""
+    n_cols = alnmat.shape[1]
+    col_valid = torch.full((n_cols,), valid_len, dtype=torch.int32, device=alnmat.device)
+    return vgru_final_cols(layers, alnmat.to(torch.int32).contiguous(), col_valid)

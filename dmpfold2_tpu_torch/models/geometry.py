@@ -1,0 +1,142 @@
+"""Geometry: MDS coordinate seeding, CA-trace refinement, backbone completion.
+
+Counterpart of ``dmpfold2_tpu/models/geometry.py`` (the eigh branch of
+``mds_coords``, the plain ``refine_coords``, ``calpha_to_main_chain``). All
+functions are mask-aware: positions at or past ``nres`` are padding.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+VDW_DIST = 3.0
+COV_DIST = 3.78
+K_VDW = 100.0
+K_COV = 100.0
+STEP_SIZE = 0.001
+
+
+def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """F.normalize semantics: v / max(||v||, eps)."""
+    n = torch.sqrt(torch.clamp(v.square().sum(dim=-1, keepdim=True), min=eps * eps))
+    return v / n
+
+
+def mds_coords(dm: torch.Tensor, nres: int, n_dims: int = 8) -> torch.Tensor:
+    """Distance-map channel (L, L) -> top-``n_dims`` MDS embedding (L, n_dims).
+
+    Symmetrize, abs, Gram matrix from the first row/column, ``eigh``, the
+    largest eigenpairs. Padded rows/columns are zeroed and given distinct very
+    negative diagonal entries, so the valid block's spectrum is kept and the
+    padding eigenpairs sink below it. Eigenvector signs are made canonical
+    (largest-|component| positive), so LAPACK and cuSOLVER agree.
+    """
+    l_pad = dm.shape[-1]
+    dm = (0.5 * (dm + dm.T)).abs()
+    gram = 0.5 * (dm[0:1, :].square() + dm[:, 0:1].square() - dm.square())
+    col = torch.arange(l_pad, device=dm.device) < nres
+    gram = gram * (col[:, None] & col[None, :])
+    pad_diag = torch.where(col, torch.zeros((), device=dm.device),
+                           -(1e6 + torch.arange(l_pad, dtype=dm.dtype, device=dm.device)))
+    gram = gram + torch.diag(pad_diag)
+    w, v = torch.linalg.eigh(gram)
+    w8 = w[-n_dims:].clamp(min=1e-8)
+    v8 = v[:, -n_dims:]
+    comp = v8.gather(0, v8.abs().argmax(dim=0, keepdim=True))[0]
+    v8 = v8 * torch.where(comp < 0, -1.0, 1.0)
+    return v8 * torch.sqrt(w8)
+
+
+def refine_step(coords: torch.Tensor, valid: torch.Tensor, adj_valid: torch.Tensor) -> torch.Tensor:
+    """One Euler step of the reference force field (network.py:111-135)."""
+    diffs = coords[None, :, :] - coords[:, None, :]  # diffs[i, j] = c[j] - c[i]
+    sq = diffs.square().sum(dim=2)
+    dists = torch.clamp(torch.sqrt(torch.clamp(sq, min=1e-12)), 0.01, 10.0)
+    norm_diffs = diffs / dists[:, :, None]
+    violate = torch.where(dists < VDW_DIST, VDW_DIST - dists, torch.zeros_like(dists))
+    violate = violate * (valid[:, None] & valid[None, :])
+    accels = (K_VDW * violate[:, :, None] * norm_diffs).sum(dim=0)
+
+    adiffs = coords[1:] - coords[:-1]
+    adists = torch.clamp(torch.sqrt(torch.clamp(adiffs.square().sum(dim=1), min=1e-12)), min=0.1)
+    anorm = adiffs / adists[:, None]
+    aviolate = torch.clamp(adists - COV_DIST, max=3.0) * adj_valid
+    acc_cov = K_COV * aviolate[:, None] * anorm
+    accels = accels.clone()
+    accels[:-1] += acc_cov
+    accels[1:] += -acc_cov
+    return coords + torch.clamp(accels, -100.0, 100.0) * STEP_SIZE
+
+
+def refine_coords(coords: torch.Tensor, n_steps: int, nres: int) -> torch.Tensor:
+    """Plain CA-trace refinement: (L, 3) -> (L, 3); padding feels no force."""
+    idx = torch.arange(coords.shape[0], device=coords.device)
+    valid = idx < nres
+    adj_valid = (idx[:-1] + 1 < nres).to(coords.dtype)
+    for _ in range(n_steps):
+        coords = refine_step(coords, valid, adj_valid)
+    return coords
+
+
+def calpha_to_main_chain(ca: torch.Tensor, nres: int) -> torch.Tensor:
+    """Levitt-method backbone completion: (L, 3) CA trace -> (L, 5, 3) N/CA/C/O/CB.
+
+    The terminal dummy CAs are taken at the true chain end, so padded tails do
+    not take part (reference network.py:141-177).
+    """
+    l_pad = ca.shape[0]
+    last = nres - 1
+    idx = torch.arange(l_pad, device=ca.device)
+
+    def take(i):
+        return ca[min(max(i, 0), l_pad - 1)]
+
+    ca_last, ca_last1, ca_last2 = take(last), take(last - 1), take(last - 2)
+
+    # dummy terminal CAs at 3.82 A along the local cross product
+    nterm = ca[0] + 3.82 * _normalize(torch.linalg.cross(ca[0] - ca[1], ca[2] - ca[1]))
+    cterm = ca_last + 3.82 * _normalize(
+        torch.linalg.cross(ca_last - ca_last1, ca_last2 - ca_last1))
+
+    prev = torch.cat([nterm[None], ca[:-1]], dim=0)   # prev[i] = ca[i-1]
+    nxt = torch.cat([ca[1:], ca[-1:]], dim=0)         # nxt[i] = ca[i+1]
+    at_last = (idx == last)[:, None]
+    nxt = torch.where(at_last, cterm[None], nxt)
+
+    vec_can = prev - ca
+    vec_cac = nxt - ca
+    crossv = _normalize(torch.linalg.cross(vec_can, vec_cac))
+    mid = 0.5 * (ca + prev)
+
+    coords_n = mid - vec_can / 8.0 + crossv / 4.0
+
+    c_shift = mid + vec_can / 8.0 - crossv / 2.0
+    o_shift = mid - 1.8 * crossv
+    c_next = torch.cat([c_shift[1:], c_shift[-1:]], dim=0)
+    o_next = torch.cat([o_shift[1:], o_shift[-1:]], dim=0)
+
+    cross_last = crossv[min(max(last, 0), l_pad - 1)]
+    mid_end = 0.5 * (cterm + ca_last)
+    c_cterm = mid_end - (cterm - ca_last) / 8.0 + cross_last / 2.0
+    o_cterm = mid_end + 2.0 * cross_last
+
+    coords_c = torch.where(at_last, c_cterm[None], c_next)
+    coords_o = torch.where(at_last, o_cterm[None], o_next)
+
+    # CB via tetrahedral construction from N, C, CA
+    vec_n_ca = ca - coords_n
+    vec_c_ca = ca - coords_c
+    cross_nc = torch.linalg.cross(vec_n_ca, vec_c_ca)
+    vec_ca_cb = vec_n_ca + vec_c_ca
+    ang = math.pi / 2.0 - math.asin(1.0 / math.sqrt(3.0))
+
+    def norm(v):
+        return torch.sqrt(torch.clamp(v.square().sum(dim=-1, keepdim=True), min=1e-24))
+
+    sx = 1.5 * math.cos(ang) / norm(vec_ca_cb)
+    sy = 1.5 * math.sin(ang) / norm(cross_nc)
+    coords_cb = ca + sx * vec_ca_cb + sy * cross_nc
+
+    return torch.stack([coords_n, ca, coords_c, coords_o, coords_cb], dim=1)

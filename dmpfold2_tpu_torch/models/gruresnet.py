@@ -1,0 +1,122 @@
+"""GRUResNet: the folding network (MSA -> coordinates + confidence), inference.
+
+Counterpart of ``dmpfold2_tpu/models/gruresnet.py:init_params`` and
+``forward``:
+
+  MSA rows --[2-layer GRU over rows, final state]--> (L, 512)
+  --[2-layer biGRU over residues]--> mat1d --outer product--> (L, L, 512)
+  concat [pair | DCA 442 | dmap 1] -> 2D trunk -> distance map + confidence
+  -> MDS -> coords head (3-layer biGRU + linear)
+  -> recycling, keeping the pass with the best mean confidence
+  -> CA refinement -> backbone completion.
+
+The vertical GRU, the residue GRUs and the refinement loop go through the
+wrappers in ``kernels/``, which launch the hand-written CUDA kernels on a CUDA
+device and run their plain versions on the CPU.
+
+Shapes are padded: (n_pad, l_pad) from the alignment, with the true (nseqs,
+nres) given as ints. Outputs at padded positions are garbage and are sliced
+off by the caller.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels import refine, rgru, vgru
+from ..utils.aln import NUM_CLASSES as NUM_AA_CLASSES  # 22
+from . import gru
+from .geometry import calpha_to_main_chain, mds_coords
+from ..features.dca import NUM_DCA_CHANNELS
+from .trunk import trunk_apply, trunk_params
+
+WIDTH = 512
+CWIDTH = 128
+
+
+def init_params(seed: int = 0, width: int = WIDTH, cwidth: int = CWIDTH, num_blocks: int = 16):
+    """Random parameters with the reference initializers, from ``seed`` (CPU)."""
+    gen = torch.Generator().manual_seed(seed)
+    bound = 1.0 / math.sqrt(width)
+    return {
+        "vgru": gru.unigru_stack_params(gen, 2, NUM_AA_CLASSES, width),
+        "hgru": gru.bigru_stack_params(gen, 2, width, width // 2),
+        "trunk": trunk_params(gen, NUM_DCA_CHANNELS + width + 1, cwidth, num_blocks),
+        "coord_gru": gru.bigru_stack_params(gen, 3, width + 8, width // 2),
+        "coord_fc": (torch.rand((width, 3), generator=gen) * 2.0 - 1.0) * bound,
+    }
+
+
+def forward(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs: int, nres: int,
+            nloops: int, refine_steps: int, *, adaptive_recycle: bool = False,
+            adaptive_patience: int = 2):
+    """Run the network.
+
+    Args:
+      params: from :func:`init_params` or ``weights.py``, on ``alnmat``'s device.
+      alnmat: (n_pad, l_pad) int residue classes (0-21), right-padded.
+      x2: (l_pad, l_pad, 443) pair features [DCA 442 | dmap seed 1], zero
+          outside the valid block.
+      nseqs, nres: true sizes.
+      nloops: recycles; with ``adaptive_recycle`` a cap, stopping once the
+          best mean confidence has not improved for ``adaptive_patience``
+          recycles in a row (``-n auto``).
+      refine_steps: refinement steps, before and after recycling.
+
+    Returns:
+      coords (l_pad, 5, 3), confidence (l_pad,), and the recycles run (int).
+    """
+    device = alnmat.device
+    l_pad = alnmat.shape[1]
+    row_mask = (torch.arange(l_pad, device=device) < nres).float()
+    pair_mask = row_mask[:, None] * row_mask[None, :]
+    valid = torch.full((1,), nres, dtype=torch.int32, device=device)  # residue GRU lengths
+
+    # MSA embedding: vertical GRU over rows, horizontal biGRU over residues
+    seq_embed = vgru.vgru_final(params["vgru"], alnmat, nseqs)                 # (L, 512)
+    mat1d = rgru.bigru_stack(params["hgru"], seq_embed[:, None, :], valid)[:, 0, :]
+    mat1d = mat1d * row_mask[:, None]
+
+    pair = mat1d[:, None, :] * mat1d[None, :, :]                               # (L, L, 512)
+    resinp_base = torch.cat([pair, x2[:, :, :-1]], dim=2)                     # 954 channels
+    del pair
+
+    def run_iteration(dmap_channel):
+        resinp = torch.cat([resinp_base, dmap_channel[:, :, None]], dim=2)
+        out = trunk_apply(params["trunk"], resinp[None], pair_mask[None, :, :, None])[0]
+        dm = out[:, :, 0]
+        conf = (out[:, :, 1] * row_mask[None, :]).sum(dim=1) / nres
+        mds = mds_coords(dm, nres)
+        coordembed = torch.cat([mat1d, mds], dim=1)                            # (L, 520)
+        gru_out = rgru.bigru_stack(params["coord_gru"], coordembed[:, None, :], valid)[:, 0, :]
+        return gru_out @ params["coord_fc"], conf                              # (L, 3), (L,)
+
+    def mean_conf(conf):
+        return (conf * row_mask).sum() / nres
+
+    # initial pass: dmap channel from x2 (template distances or -1 fill)
+    ca, conf = run_iteration(x2[:, :, -1])
+    ca = refine.refine_coords(ca.contiguous(), refine_steps, nres)
+    best_mean, best_conf, best_coords = mean_conf(conf), conf, ca
+
+    # recycling: predicted distances fed back as the last input channel. The
+    # best pass is tracked on the device; only -n auto reads it on the host.
+    iterations, stall = 0, 0
+    while iterations < nloops and stall < adaptive_patience:
+        diffs = ca[:, None, :] - ca[None, :, :]
+        dmap = torch.sqrt(torch.clamp(diffs.square().sum(dim=2), min=1e-8)) * pair_mask
+        ca, conf = run_iteration(dmap)
+        mean_new = mean_conf(conf)
+        better = mean_new > best_mean
+        best_mean = torch.where(better, mean_new, best_mean)
+        best_conf = torch.where(better, conf, best_conf)
+        best_coords = torch.where(better, ca, best_coords)
+        iterations += 1
+        if adaptive_recycle:
+            stall = 0 if bool(better) else stall + 1
+
+    best_coords = refine.refine_coords(best_coords.contiguous(), refine_steps, nres)
+    coords = calpha_to_main_chain(best_coords, nres)
+    return coords, torch.sigmoid(best_conf), iterations

@@ -1,0 +1,146 @@
+"""The PyTorch port's engine and CLI on the bundled example, against the JAX
+package's golden output and its own fold."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dmpfold2_tpu.engine.fold import Folder as JaxFolder
+from dmpfold2_tpu.models.gruresnet import init_params as jax_init_params
+from dmpfold2_tpu.utils import assets
+from dmpfold2_tpu.weights import save_params
+from dmpfold2_tpu_torch import aln_to_coords
+from dmpfold2_tpu_torch.cli import run_dmpfold
+from dmpfold2_tpu_torch.engine import fold
+from dmpfold2_tpu_torch.utils import aln, pdb
+from dmpfold2_tpu_torch.weights import params_from_jax
+
+from test_golden import GOLDEN_TOY, _compare_to_golden
+
+EXAMPLE_ALN = assets.example_aln_path()
+EXAMPLE_PDB = assets.example_template_path()
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_MODULES = [
+    "dmpfold2_tpu_torch", "dmpfold2_tpu_torch.cli", "dmpfold2_tpu_torch.config",
+    "dmpfold2_tpu_torch.weights", "dmpfold2_tpu_torch.engine.fold",
+    "dmpfold2_tpu_torch.engine.buckets", "dmpfold2_tpu_torch.features.msa",
+    "dmpfold2_tpu_torch.features.dca", "dmpfold2_tpu_torch.ops.norm",
+    "dmpfold2_tpu_torch.models.gru", "dmpfold2_tpu_torch.models.trunk",
+    "dmpfold2_tpu_torch.models.geometry", "dmpfold2_tpu_torch.models.gruresnet",
+    "dmpfold2_tpu_torch.kernels._build", "dmpfold2_tpu_torch.kernels.vgru",
+    "dmpfold2_tpu_torch.kernels.rgru", "dmpfold2_tpu_torch.kernels.refine",
+    "dmpfold2_tpu_torch.utils.aln", "dmpfold2_tpu_torch.utils.pdb",
+]
+
+
+@pytest.fixture(scope="module")
+def toy_tree():
+    return jax.tree.map(np.asarray, jax_init_params(jax.random.PRNGKey(0), width=32,
+                                                    cwidth=16, num_blocks=2))
+
+
+@pytest.fixture(scope="module")
+def toy_npz(toy_tree, tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("weights") / "toy.npz")
+    save_params(path, toy_tree)
+    return path
+
+
+def test_golden_pf10963(toy_tree):
+    """The port's fold of PF10963 with the golden file's weights (JAX
+    init_params(PRNGKey(0), 32, 16, 2), -n 1 -m 10)."""
+    alnmat = aln.parse_aln(EXAMPLE_ALN)
+    coords, confs = fold.Folder(params_from_jax(toy_tree), device="cpu").fold(
+        alnmat, iterations=1, minsteps=10)
+    _compare_to_golden(list(pdb.format_pdb(coords, confs, alnmat[0])), GOLDEN_TOY, 0.02)
+
+
+def test_cli_writes_golden_pdb(toy_npz):
+    out = subprocess.run(
+        [sys.executable, "-m", "dmpfold2_tpu_torch.cli", "-i", EXAMPLE_ALN, "-d", "cpu",
+         "-w", toy_npz, "-n", "1", "-m", "10"],
+        capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    _compare_to_golden(out.stdout.splitlines(), GOLDEN_TOY, 0.02)
+
+
+def test_template_auto_fold_matches_jax(toy_tree):
+    """A template fold with -n auto: same structure and recycle count as JAX.
+    The template is the first 82 CAs of the bundled 3FGX (192 CAs), a real
+    trace of the alignment's length."""
+    alnmat = aln.parse_aln(EXAMPLE_ALN)[:60]
+    template_ca = pdb.parse_template_ca(EXAMPLE_PDB)[:82]
+    ours_c, ours_f, ours_n = fold.Folder(params_from_jax(toy_tree), device="cpu").fold_async(
+        alnmat, template_ca, iterations="auto", minsteps=10)()
+    jax_folder = JaxFolder(toy_tree)
+    ref_c, ref_f = jax_folder.fold(alnmat, template_ca, iterations="auto", minsteps=10)
+    assert ours_n == jax_folder.last_auto_iterations
+    assert 1 <= ours_n <= fold.AUTO_ITERATIONS_CAP
+    np.testing.assert_allclose(ours_f, ref_f, atol=2e-4)
+    np.testing.assert_allclose(ours_c, ref_c, atol=0.02)
+
+
+def test_template_length_mismatch_raises(toy_tree):
+    with pytest.raises(ValueError, match="lengths must match"):
+        fold.Folder(params_from_jax(toy_tree), device="cpu").fold(
+            aln.parse_aln(EXAMPLE_ALN)[:, :40], pdb.parse_template_ca(EXAMPLE_PDB))
+
+
+def test_port_imports_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'dmpfold2_tpu' or m.startswith('dmpfold2_tpu.'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_folder_defaults_to_cuda(monkeypatch, toy_tree):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fold.Folder(params_from_jax(toy_tree))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        aln_to_coords(EXAMPLE_ALN, params=params_from_jax(toy_tree))
+
+
+def test_no_weights_raises_without_download():
+    with pytest.raises(FileNotFoundError, match="does not download"):
+        aln_to_coords(EXAMPLE_ALN, device="cpu")
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--precision", "bf16"], "not yet ported"),
+    (["--precision", "fp32_strict"], "not yet ported"),
+    (["-o", "out"], "batch mode"),
+])
+def test_cli_not_ported_options_raise(argv, match, toy_npz):
+    with pytest.raises(NotImplementedError, match=match):
+        run_dmpfold(["-i", EXAMPLE_ALN, "-d", "cpu", "-w", toy_npz] + argv)
+
+
+def _run_smoke(cwd, script):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, script], capture_output=True, text=True,
+                          cwd=cwd, env=env, timeout=300)
+
+
+def test_chip_smoke_fails_without_cuda():
+    out = _run_smoke(REPO, os.path.join(REPO, "chip_smoke.py"))
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    script = tmp_path / "chip_smoke.py"
+    script.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
+    out = _run_smoke(str(tmp_path), str(script))
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

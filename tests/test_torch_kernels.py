@@ -1,0 +1,236 @@
+"""The PyTorch port's kernels against the JAX package.
+
+On the CPU each wrapper runs its kernel's plain version; those are held
+against two JAX functions: the Pallas kernel in interpret mode (as
+tests/test_pallas_kernels.py and tests/test_pallas_refine.py run it) and the
+JAX scan or XLA path. Tolerances are those files': 1e-5 for the GRUs, 1e-4
+for refinement.
+
+The ``gpu`` tests run the CUDA kernels against the plain versions on a card;
+they decide inside the test whether a card is present and skip here.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dmpfold2_tpu.kernels.refine import refine_coords_pallas
+from dmpfold2_tpu.kernels.rgru import bigru_stack_pallas, gru_seq_pallas
+from dmpfold2_tpu.kernels.vgru import vgru_final_cols_pallas
+from dmpfold2_tpu.models import geometry as jax_geometry
+from dmpfold2_tpu.models import gru as jax_gru
+from dmpfold2_tpu_torch.kernels import refine, rgru, vgru
+
+GRU_TOL = 1e-5
+REFINE_TOL = 1e-4
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _torch_tree(tree):
+    return jax.tree.map(lambda a: torch.from_numpy(np.array(a, np.float32)), tree)
+
+
+@pytest.fixture(scope="module")
+def vgru_layers():
+    return _np_tree(jax_gru.unigru_stack_params(jax.random.PRNGKey(0), 2, 22, 64))
+
+
+def _require_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+
+
+# ---------------------------------------------------------------- vgru
+
+@pytest.mark.parametrize("n_rows,n_cols,seed", [(24, 16, 2), (12, 13, 5), (20, 8, 1)])
+def test_vgru_plain_per_column_valid(vgru_layers, n_rows, n_cols, seed):
+    """Per-column valid depths, a prime column count (13)."""
+    rng = np.random.default_rng(seed)
+    aln = rng.integers(0, 22, (n_rows, n_cols)).astype(np.int32)
+    valid = rng.integers(1, n_rows + 1, n_cols).astype(np.int32)
+    ours = vgru.vgru_final_cols(_torch_tree(vgru_layers), torch.from_numpy(aln),
+                                torch.from_numpy(valid)).numpy()
+    pallas = np.asarray(vgru_final_cols_pallas(vgru_layers, jnp.asarray(aln),
+                                               jnp.asarray(valid), interpret=True))
+    x = jnp.asarray(aln[..., None] == np.arange(22), jnp.float32)
+    scan = np.asarray(jax_gru.unigru_stack_final(vgru_layers, x, valid_len=jnp.asarray(valid)))
+    assert ours.shape == (n_cols, 64)
+    np.testing.assert_allclose(ours, pallas, atol=GRU_TOL)
+    np.testing.assert_allclose(ours, scan, atol=GRU_TOL)
+
+
+def test_vgru_plain_single_target_padding(vgru_layers):
+    """Padded rows past the true depth leave the state as the unpadded run's."""
+    rng = np.random.default_rng(7)
+    aln = rng.integers(0, 22, (15, 10)).astype(np.int32)
+    padded = np.zeros((24, 10), np.int32)
+    padded[:15] = aln
+    layers = _torch_tree(vgru_layers)
+    base = vgru.vgru_final(layers, torch.from_numpy(aln), 15).numpy()
+    ours = vgru.vgru_final(layers, torch.from_numpy(padded), 15).numpy()
+    np.testing.assert_array_equal(ours, base)
+    from dmpfold2_tpu.kernels.vgru import vgru_final_pallas
+
+    pallas = np.asarray(vgru_final_pallas(vgru_layers, jnp.asarray(padded), 15, interpret=True))
+    np.testing.assert_allclose(ours, pallas, atol=GRU_TOL)
+
+
+# ---------------------------------------------------------------- rgru
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_rgru_plain_per_column_valid(reverse):
+    rng = np.random.default_rng(3)
+    t_len, batch, hidden = 23, 5, 32
+    p = _np_tree(jax_gru.gru_layer_params(jax.random.PRNGKey(1), 8, hidden))
+    pt = _torch_tree(p)
+    xproj = rng.normal(size=(t_len, batch, 3 * hidden)).astype(np.float32)
+    valid = np.asarray([23, 17, 1, 9, 0], np.int32)
+    ours = rgru.gru_seq(pt["wh"], pt["bh"], torch.from_numpy(xproj), torch.from_numpy(valid),
+                        reverse=reverse).numpy()
+    pallas = np.asarray(gru_seq_pallas(p["wh"], p["bh"], jnp.asarray(xproj), jnp.asarray(valid),
+                                       reverse=reverse, interpret=True))
+    np.testing.assert_allclose(ours, pallas, atol=GRU_TOL)
+    if reverse:  # a reverse pass holds zero past each column's length
+        assert np.all(ours[17:, 1] == 0) and np.all(ours[:, 4] == 0)
+    else:        # a forward pass freezes there
+        np.testing.assert_array_equal(ours[9:, 3], np.broadcast_to(ours[8, 3], ours[9:, 3].shape))
+
+
+def test_rgru_stack_matches_scan_and_pallas():
+    """Three bidirectional layers, per-target lengths (as coord_gru runs)."""
+    stack = _np_tree(jax_gru.bigru_stack_params(jax.random.PRNGKey(2), 3, 40, 32))
+    x = np.array(jax.random.normal(jax.random.PRNGKey(3), (19, 4, 40), jnp.float32))
+    valid = np.asarray([19, 11, 1, 14], np.int32)
+    ours = rgru.bigru_stack(_torch_tree(stack), torch.from_numpy(x), torch.from_numpy(valid))
+    scan = np.asarray(jax_gru.bigru_stack(stack, jnp.asarray(x), jnp.asarray(valid)))
+    pallas = np.asarray(bigru_stack_pallas(stack, jnp.asarray(x), jnp.asarray(valid),
+                                           interpret=True))
+    np.testing.assert_allclose(ours.numpy(), scan, atol=GRU_TOL)
+    np.testing.assert_allclose(ours.numpy(), pallas, atol=GRU_TOL)
+
+
+def test_rgru_scalar_valid_single_target():
+    stack = _np_tree(jax_gru.bigru_stack_params(jax.random.PRNGKey(4), 2, 12, 16))
+    x = np.array(jax.random.normal(jax.random.PRNGKey(5), (19, 1, 12), jnp.float32))
+    ours = rgru.bigru_stack(_torch_tree(stack), torch.from_numpy(x), 13).numpy()
+    scan = np.asarray(jax_gru.bigru_stack(stack, jnp.asarray(x), 13))
+    np.testing.assert_allclose(ours, scan, atol=GRU_TOL)
+
+
+# ---------------------------------------------------------------- refine
+
+def _chain(l, seed, scale=4.0):
+    return (np.random.default_rng(seed).normal(size=(l, 3)) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("l,nres,steps", [(25, 25, 20), (96, 96, 100), (130, 101, 7),
+                                          (88, 82, 30)])
+def test_refine_plain_matches_pallas_and_xla(l, nres, steps):
+    ca = _chain(l, seed=l)
+    ours = refine.refine_coords(torch.from_numpy(ca), steps, nres).numpy()
+    xla = np.asarray(jax_geometry.refine_coords(jnp.asarray(ca), jnp.asarray(steps), nres))
+    pallas = np.asarray(refine_coords_pallas(jnp.asarray(ca), jnp.asarray(steps), nres,
+                                             interpret=True))
+    np.testing.assert_allclose(ours, xla, atol=REFINE_TOL)
+    np.testing.assert_allclose(ours, pallas, atol=REFINE_TOL)
+    np.testing.assert_array_equal(ours[nres:], ca[nres:])  # padding stays put
+
+
+def test_refine_plain_zero_steps_identity():
+    ca = _chain(33, seed=2)
+    np.testing.assert_array_equal(refine.refine_coords(torch.from_numpy(ca), 0, 33).numpy(), ca)
+
+
+def test_refine_plain_padded_matches_unpadded():
+    ca = _chain(40, seed=9)
+    base = refine.refine_coords(torch.from_numpy(ca), 30, 40).numpy()
+    ca_pad = np.zeros((70, 3), np.float32)
+    ca_pad[:40] = ca
+    padded = refine.refine_coords(torch.from_numpy(ca_pad), 30, 40).numpy()
+    np.testing.assert_allclose(padded[:40], base, atol=1e-5)
+
+
+def test_cpu_wrappers_do_not_launch():
+    before = (vgru.launches, rgru.launches, refine.launches)
+    refine.refine_coords(torch.zeros(4, 3), 2, 4)
+    assert (vgru.launches, rgru.launches, refine.launches) == before
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No fallback: a kernel that cannot be built raises."""
+    from dmpfold2_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(("refine",))
+
+
+# ---------------------------------------------------------------- on the card
+
+@pytest.mark.gpu
+def test_wrappers_reject_bad_input_on_card():
+    _require_cuda()
+    dev = torch.device("cuda")
+    layers = [{k: torch.zeros(s, device=dev) for k, s in
+               (("wi", (22 if i == 0 else 512, 1536)), ("wh", (512, 1536)), ("bi", (1536,)),
+                ("bh", (1536,)))} for i in range(2)]
+    aln64 = torch.zeros((4, 8), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="aln_cols"):
+        vgru.vgru_final_cols(layers, aln64, torch.zeros(8, dtype=torch.int32, device=dev))
+    xproj = torch.zeros((1, 768, 5), device=dev).permute(0, 2, 1)  # (1, 5, 768), strided
+    with pytest.raises(ValueError, match="xproj"):
+        rgru.gru_seq(layers[1]["wh"][:256, :768].contiguous(), torch.zeros(768, device=dev),
+                     xproj, torch.ones(5, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="nres"):
+        refine.refine_coords(torch.zeros((4, 3), device=dev), 10, 5)
+
+@pytest.mark.gpu
+def test_vgru_kernel_on_card():
+    _require_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    layers = _torch_tree(_np_tree(jax_gru.unigru_stack_params(jax.random.PRNGKey(0), 2, 22, 512)))
+    layers = [{k: v.to(dev) for k, v in p.items()} for p in layers]
+    aln = torch.from_numpy(rng.integers(0, 22, (256, 88)).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.integers(0, 257, 88).astype(np.int32)).to(dev)
+    out = vgru.vgru_final_cols(layers, aln, valid)
+    ref = vgru.vgru_final_cols_plain(layers, aln, valid)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True])
+def test_rgru_kernel_on_card(reverse):
+    _require_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    p = _torch_tree(_np_tree(jax_gru.gru_layer_params(jax.random.PRNGKey(1), 8, 256)))
+    p = {k: v.to(dev) for k, v in p.items()}
+    xproj = torch.from_numpy(rng.normal(size=(88, 5, 768)).astype(np.float32)).to(dev)
+    valid = torch.tensor([88, 61, 1, 82, 0], dtype=torch.int32, device=dev)
+    out = rgru.gru_seq(p["wh"], p["bh"], xproj, valid, reverse=reverse)
+    ref = rgru.gru_seq_plain(p["wh"], p["bh"], xproj, valid, reverse=reverse)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,nres", [(88, 82), (1536, 1536)])
+def test_refine_kernel_on_card(l, nres):
+    _require_cuda()
+    steps = np.random.default_rng(l).normal(size=(l, 3))
+    steps *= 3.8 / np.linalg.norm(steps, axis=1, keepdims=True)
+    ca = torch.from_numpy(np.cumsum(steps, axis=0).astype(np.float32)).cuda()
+    out = refine.refine_coords(ca, 100, nres)
+    ref = refine.refine_coords_plain(ca, 100, nres)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert torch.equal(out[nres:], ca[nres:])
