@@ -43,7 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="model weights (.pt state dict or .npz)")
     parser.add_argument("--precision", type=str, default=None,
                         choices=["fp32", "bf16", "fp32_strict"],
-                        help="compute policy; only fp32 is ported so far")
+                        help="compute policy: fp32 (default), or bf16 (the trunk in "
+                             "bf16 with fp32 accumulation); fp32_strict is not yet "
+                             "ported")
     parser.add_argument("-o", "--out-dir", dest="out_dir", type=str, default=None,
                         help="batch mode (not yet ported)")
     return parser

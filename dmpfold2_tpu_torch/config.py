@@ -1,24 +1,23 @@
 """Fold configuration: one dataclass mapped 1:1 onto the CLI flags.
 
-Counterpart of ``dmpfold2_tpu/config.py:FoldConfig``. The port runs one
-precision, ``fp32``, in this slice; the other engines are not ported yet
-(ROADMAP.md, queue 1 item 6).
+Counterpart of ``dmpfold2_tpu/config.py:FoldConfig``. The port runs two
+precisions, ``fp32`` and ``bf16``; ``fp32_strict`` is not ported yet
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-PRECISIONS = ("fp32",)
-NOT_PORTED_PRECISIONS = ("bf16", "fp32_strict")
+PRECISIONS = ("fp32", "bf16")
+NOT_PORTED_PRECISIONS = ("fp32_strict",)
 
 
 def check_precision(precision: str) -> None:
     if precision in NOT_PORTED_PRECISIONS:
         raise NotImplementedError(
             f"precision {precision!r} is not yet ported to the PyTorch "
-            "package (ROADMAP.md, queue 1 item 6: bf16 engine; fp32_strict "
-            "follows it); use precision='fp32'")
+            "package (ROADMAP.md, queue 1); use precision='fp32' or 'bf16'")
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; expected one of "
                          f"{PRECISIONS + NOT_PORTED_PRECISIONS}")

@@ -1,12 +1,14 @@
 """The folding engine: from an MSA to a structure on one device.
 
-Counterpart of ``dmpfold2_tpu/engine/fold.py`` for the single-target fp32
-fold. Host code parses and pads; everything after runs on the chosen device:
-one-hot, reweighting, DCA, the network with recycling, refinement and
-backbone completion. On a CUDA device the vertical GRU, the residue GRUs and
-the refinement loop run as hand-written CUDA kernels (``kernels/``); on the
-CPU their plain versions run. Nothing else chooses between them: the device
-of the tensors does.
+Counterpart of ``dmpfold2_tpu/engine/fold.py`` for the single-target fold in
+two engines: ``fp32`` and ``bf16`` (the trunk in bf16 with fp32
+accumulation; everything else as in fp32). Host code parses and pads;
+everything after runs on the chosen device: one-hot, reweighting, DCA, the
+network with recycling, refinement and backbone completion. On a CUDA device
+the vertical GRU, the residue GRUs, the refinement loop and, in bf16, the
+trunk's input layer and block convs run as hand-written CUDA kernels
+(``kernels/``); on the CPU their plain versions run. Nothing else chooses
+between them: the device of the tensors does.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``, and
 raise if CUDA is missing.
@@ -51,7 +53,11 @@ def use_full_fp32() -> None:
     """fp32 means fp32: turn TF32 off for matmuls and cuDNN convolutions.
 
     cuDNN convolutions default to TF32 (about three decimal digits), which the
-    fp32 engine must not use. These are process-wide PyTorch settings.
+    fp32 engine must not use. Both engines call this: the bf16 engine's fp32
+    parts (DCA, GRUs, MDS, the trunk head) stay full fp32 too. The JAX bf16
+    engine runs its DCA matmuls at a lower precision ("high"), but TF32 here
+    is a process-wide PyTorch switch, so an engine that turned it on would
+    leak it into an fp32 fold in the same process.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -59,16 +65,18 @@ def use_full_fp32() -> None:
 
 def fold_padded(params, alnmat: torch.Tensor, nseqs: int, nres: int,
                 dmap_channel: torch.Tensor, nloops: int, refine_steps: int,
-                adaptive: bool = False):
+                adaptive: bool = False, precision: str = "fp32"):
     """(n_pad, l_pad) int32 alignment on the device -> (coords (l_pad, 5, 3),
-    confidences (l_pad,), recycles run)."""
+    confidences (l_pad,), recycles run). ``params`` as
+    ``gruresnet.pack_params`` gives them for ``precision``."""
     oh = msa_one_hot(alnmat, nseqs, nres)
     w = reweight(oh, nres)
     dca = dca_or_zero(oh, w, nseqs, nres)
     x2 = torch.cat([dca, dmap_channel[:, :, None]], dim=2)
     del oh, dca
     return gruresnet.forward(params, alnmat, x2, nseqs, nres, nloops, refine_steps,
-                             adaptive_recycle=adaptive, adaptive_patience=AUTO_PATIENCE)
+                             adaptive_recycle=adaptive, adaptive_patience=AUTO_PATIENCE,
+                             precision=precision)
 
 
 def _build_dmap_channel(l_pad: int, nres: int, template_ca: np.ndarray | None) -> np.ndarray:
@@ -90,13 +98,17 @@ def _build_dmap_channel(l_pad: int, nres: int, template_ca: np.ndarray | None) -
 
 
 class Folder:
-    """Holds the parameters on one device and folds single targets."""
+    """Holds the parameters on one device and folds single targets.
+
+    With ``precision="bf16"`` the trunk weights are packed for the bf16
+    kernels here, once, not per fold.
+    """
 
     def __init__(self, params, device=None, precision: str = "fp32"):
         check_precision(precision)
         self.device = resolve_device(device)
         use_full_fp32()
-        self.params = params_to(params, self.device)
+        self.params = gruresnet.pack_params(params_to(params, self.device), precision)
         self.precision = precision
 
     def fold(self, alnmat: np.ndarray, template_ca: np.ndarray | None = None,
@@ -130,7 +142,7 @@ class Folder:
             coords, confs, used = fold_padded(
                 self.params, torch.from_numpy(aln_p).to(self.device), nseqs, nres,
                 torch.from_numpy(dmap).to(self.device), nloops, max(int(minsteps), 0),
-                adaptive=adaptive)
+                adaptive=adaptive, precision=self.precision)
 
         def fetch():
             return coords[:nres].cpu().numpy(), confs[:nres].cpu().numpy(), used

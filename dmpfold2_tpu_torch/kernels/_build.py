@@ -30,6 +30,8 @@ SIGNATURES = {
     "vgru": ("vgru_final_cols", [_P, _P, _I, _I, _I] + [_P] * 9 + [_P]),
     "rgru": ("rgru_seq", [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "refine": ("refine_coords", [_P, _P, _I, _I, _I, _P]),
+    "conv5x5_maxout": ("conv5x5_maxout_stats", [_P] * 6 + [_I] * 4 + [_P]),
+    "gemm_maxout": ("gemm_maxout_stats", [_P] * 6 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,206 @@
+"""The trunk's maxout convolutions in bf16: CUDA kernel wrappers, their plain
+versions and the weight packing they read.
+
+Replaces two TPU kernels of ``dmpfold2_tpu/kernels/conv_block.py`` in stats
+mode, the mode the bf16 engine runs:
+
+  * ``conv5x5_maxout`` (``csrc/conv5x5_maxout.cu``): each residual block's
+    same-padded 5x5 conv 128 -> 512 + bias + maxout over 4 slices;
+  * ``gemm_maxout`` (``csrc/gemm_maxout.cu``): the input layer, a 1x1 conv
+    (a GEMM) 955 -> 384 + bias + maxout over 3 slices.
+
+Both take bf16 operands with fp32 accumulation and return the bf16 maxout
+(channel c = g * pool + p pooled into g; the first maximum wins, which does
+not change the value) with the fp32 masked sum and sum of squares of the
+pre-rounding maxout over [0, nres)^2 per target and channel. Maps are NHWC,
+as the JAX package keeps them at this boundary.
+
+On a CUDA tensor a wrapper launches its kernel or raises; it never reaches
+cuDNN, cuBLAS or the plain version. On a CPU tensor it runs the plain
+version, which computes in fp32 on the same bf16 operands. Weights are packed
+once (:func:`pack_conv5x5_weights`, :func:`pack_gemm_weights`), when the
+engine puts the parameters on the device, never per call.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.norm import scale_shift_from_sums
+from . import _build
+
+KSIZE = 5
+CONV_POOL = 4
+GEMM_POOL = 3
+CONV_C_IN = 128       # the conv kernel's input width
+CONV_N_TILE = 128     # conv output columns per block: 32 whole groups of 4
+CONV_TILE = (8, 16)   # conv pixels per block: an 8 x 16 patch
+GEMM_N_TILE = 96      # GEMM output columns per block: 32 whole groups of 3
+GEMM_K_ALIGN = 64     # the GEMM's K step; K is padded to a multiple upstream
+GEMM_TILE_M = 128     # GEMM pixels per block
+
+conv_launches = 0  # conv5x5_maxout kernel launches since the last reset
+gemm_launches = 0  # gemm_maxout kernel launches since the last reset
+
+
+def gemm_k_pad(c_in: int) -> int:
+    """The input width the GEMM kernel reads: ``c_in`` rounded up to 64."""
+    return -(-c_in // GEMM_K_ALIGN) * GEMM_K_ALIGN
+
+
+def pack_conv5x5_weights(w: torch.Tensor, b: torch.Tensor):
+    """OIHW (c_out, c_in, 5, 5) fp32 -> ((25 * c_in, c_out) bf16, (c_out,) fp32).
+
+    Row (dy * 5 + dx) * c_in + ci, column c in torch order, so a group's pool
+    slices are adjacent columns and a block's column tile holds whole groups.
+    """
+    c_out, c_in = w.shape[:2]
+    packed = w.permute(2, 3, 1, 0).reshape(KSIZE * KSIZE * c_in, c_out)
+    return packed.to(torch.bfloat16).contiguous(), b.to(torch.float32).contiguous()
+
+
+def pack_gemm_weights(w: torch.Tensor, b: torch.Tensor, k_pad: int):
+    """OIHW (c_out, c_in, 1, 1) fp32 -> ((k_pad, c_out) bf16, rows >= c_in zero;
+    (c_out,) fp32). Column c in torch order."""
+    c_out, c_in = w.shape[:2]
+    packed = torch.zeros((k_pad, c_out), dtype=torch.bfloat16, device=w.device)
+    packed[:c_in] = w.reshape(c_out, c_in).T
+    return packed, b.to(torch.float32).contiguous()
+
+
+def _masked_sums(y: torch.Tensor, nres: torch.Tensor):
+    """(B, L, L, C) fp32 -> sum and sum of squares over [0, nres)^2, each (B, C)."""
+    idx = torch.arange(y.shape[1], device=y.device)
+    rows = (idx[None, :] < nres[:, None].to(idx.device)).to(y.dtype)       # (B, L)
+    masked = y * (rows[:, :, None, None] * rows[:, None, :, None])
+    return masked.sum(dim=(1, 2)), (masked * masked).sum(dim=(1, 2))
+
+
+def _maxout_nhwc(y: torch.Tensor, pool: int) -> torch.Tensor:
+    """(B, c_out, H, W) -> (B, H, W, c_out / pool), max over c = g * pool + p."""
+    b, c, h, w = y.shape
+    return y.view(b, c // pool, pool, h, w).amax(dim=2).permute(0, 2, 3, 1)
+
+
+def conv5x5_maxout_stats_plain(x: torch.Tensor, w_packed: torch.Tensor,
+                               b_packed: torch.Tensor, nres: torch.Tensor):
+    """Plain version of :func:`conv5x5_maxout_stats`: ``F.conv2d`` in fp32 on
+    the bf16-rounded operands, bias, maxout, masked sums."""
+    batch, l_rows, l_cols, c_in = x.shape
+    c_out = w_packed.shape[1]
+    w = w_packed.to(torch.bfloat16).float().view(KSIZE, KSIZE, c_in, c_out).permute(3, 2, 0, 1)
+    xf = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
+    y = _maxout_nhwc(F.conv2d(xf, w, b_packed.float(), padding=KSIZE // 2), CONV_POOL)
+    s, ss = _masked_sums(y, nres)
+    return y.to(torch.bfloat16), s, ss
+
+
+def gemm_maxout_stats_plain(x: torch.Tensor, w_packed: torch.Tensor,
+                            b_packed: torch.Tensor, nres: torch.Tensor):
+    """Plain version of :func:`gemm_maxout_stats`: an fp32 matmul on the
+    bf16-rounded operands, bias, maxout, masked sums."""
+    batch, l_rows, l_cols, k_pad = x.shape
+    c_out = w_packed.shape[1]
+    xf = x.to(torch.bfloat16).float().reshape(-1, k_pad)
+    y = xf @ w_packed.to(torch.bfloat16).float() + b_packed.float()
+    y = y.view(batch, l_rows, l_cols, c_out // GEMM_POOL, GEMM_POOL).amax(dim=4)
+    s, ss = _masked_sums(y, nres)
+    return y.to(torch.bfloat16), s, ss
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if (t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"{name}: need a contiguous, 16-byte aligned {dtype} tensor of shape "
+                         f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}" + ("" if t.is_contiguous() else " (not contiguous)"))
+
+
+def _launch(lib: str, x, w_packed, b_packed, nres, tiles: int, pool: int, dim3: int):
+    """Allocate the output and the partials, launch, reduce the partials per target."""
+    batch, l_rows = x.shape[:2]
+    c_groups = w_packed.shape[1] // pool
+    out = torch.empty((batch, l_rows, l_rows, c_groups), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((batch, tiles, 2, c_groups), dtype=torch.float32, device=x.device)
+    fn = _build.load(lib)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(), nres.data_ptr(),
+                 out.data_ptr(), partial.data_ptr(), batch, l_rows, dim3,
+                 w_packed.shape[1], stream)
+    torch.cuda.check_error(err)
+    sums = partial.sum(dim=1)  # fixed order: the same bits on every run
+    return out, sums[:, 0], sums[:, 1]
+
+
+def conv5x5_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
+                         nres: torch.Tensor):
+    """Fused 5x5 conv + bias + maxout(4) + masked sums, NHWC.
+
+    x (B, L, L, 128) bf16; w_packed (3200, c_out) bf16 and b_packed (c_out,)
+    fp32 from :func:`pack_conv5x5_weights`; nres (B,) int32 ->
+    (out (B, L, L, c_out / 4) bf16, sum (B, c_out / 4), sumsq (B, c_out / 4)).
+    """
+    global conv_launches
+    if x.device.type == "cpu":
+        return conv5x5_maxout_stats_plain(x, w_packed, b_packed, nres)
+    if x.dim() != 4 or x.shape[1] != x.shape[2] or x.shape[3] != CONV_C_IN:
+        raise ValueError(f"conv5x5_maxout: x must be (B, L, L, {CONV_C_IN}); got "
+                         f"{tuple(x.shape)}")
+    batch, l_rows = x.shape[:2]
+    c_out = w_packed.shape[-1]
+    if c_out <= 0 or c_out % CONV_N_TILE or batch > 65535:
+        raise ValueError(f"conv5x5_maxout: c_out must be a multiple of {CONV_N_TILE} and "
+                         f"B <= 65535; got c_out {c_out}, B {batch}")
+    dev = x.device
+    _check("conv5x5_maxout: x", x, torch.bfloat16, x.shape, dev)
+    _check("conv5x5_maxout: w_packed", w_packed, torch.bfloat16,
+           (KSIZE * KSIZE * CONV_C_IN, c_out), dev)
+    _check("conv5x5_maxout: b_packed", b_packed, torch.float32, (c_out,), dev)
+    _check("conv5x5_maxout: nres", nres, torch.int32, (batch,), dev)
+    tiles = -(-l_rows // CONV_TILE[0]) * -(-l_rows // CONV_TILE[1])
+    result = _launch("conv5x5_maxout", x, w_packed, b_packed, nres, tiles, CONV_POOL, CONV_C_IN)
+    conv_launches += 1
+    return result
+
+
+def gemm_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
+                      nres: torch.Tensor):
+    """Fused 1x1 conv (GEMM) + bias + maxout(3) + masked sums, NHWC.
+
+    x (B, L, L, k_pad) bf16 with k_pad a multiple of 64, channels past the
+    layer's inputs zero; w_packed (k_pad, c_out) bf16 and b_packed (c_out,)
+    fp32 from :func:`pack_gemm_weights`; nres (B,) int32 ->
+    (out (B, L, L, c_out / 3) bf16, sum (B, c_out / 3), sumsq (B, c_out / 3)).
+    """
+    global gemm_launches
+    if x.device.type == "cpu":
+        return gemm_maxout_stats_plain(x, w_packed, b_packed, nres)
+    if x.dim() != 4 or x.shape[1] != x.shape[2] or x.shape[3] % GEMM_K_ALIGN:
+        raise ValueError(f"gemm_maxout: x must be (B, L, L, k_pad) with k_pad a multiple of "
+                         f"{GEMM_K_ALIGN}; got {tuple(x.shape)}")
+    batch, l_rows, _, k_pad = x.shape
+    c_out = w_packed.shape[-1]
+    if c_out <= 0 or c_out % GEMM_N_TILE or batch > 65535:
+        raise ValueError(f"gemm_maxout: c_out must be a multiple of {GEMM_N_TILE} and "
+                         f"B <= 65535; got c_out {c_out}, B {batch}")
+    dev = x.device
+    _check("gemm_maxout: x", x, torch.bfloat16, x.shape, dev)
+    _check("gemm_maxout: w_packed", w_packed, torch.bfloat16, (k_pad, c_out), dev)
+    _check("gemm_maxout: b_packed", b_packed, torch.float32, (c_out,), dev)
+    _check("gemm_maxout: nres", nres, torch.int32, (batch,), dev)
+    tiles = -(-(l_rows * l_rows) // GEMM_TILE_M)
+    result = _launch("gemm_maxout", x, w_packed, b_packed, nres, tiles, GEMM_POOL, k_pad)
+    gemm_launches += 1
+    return result
+
+
+def gemm_maxout_norm(x, w_packed, b_packed, gamma, beta, nres, mask):
+    """Counterpart of the JAX ``gemm_maxout_norm`` (:609): the input layer
+    normalized and masked, ``((out * scale + shift) * mask)`` in bf16.
+    ``mask``: (B, L, L, 1) float."""
+    out, s, ss = gemm_maxout_stats(x, w_packed, b_packed, nres)
+    scale, shift = scale_shift_from_sums(s, ss, nres, gamma, beta)
+    y = out.float() * scale[:, None, None, :] + shift[:, None, None, :]
+    return (y * mask).to(torch.bfloat16)

@@ -12,7 +12,10 @@ Counterpart of ``dmpfold2_tpu/models/gruresnet.py:init_params`` and
 
 The vertical GRU, the residue GRUs and the refinement loop go through the
 wrappers in ``kernels/``, which launch the hand-written CUDA kernels on a CUDA
-device and run their plain versions on the CPU.
+device and run their plain versions on the CPU. With ``precision="bf16"``
+the trunk runs ``trunk.trunk_apply_bf16`` (its convs through
+``kernels/conv_block.py``) on a bf16 input built once per fold; the rest
+stays fp32.
 
 Shapes are padded: (n_pad, l_pad) from the alignment, with the true (nseqs,
 nres) given as ints. Outputs at padded positions are garbage and are sliced
@@ -30,7 +33,7 @@ from ..utils.aln import NUM_CLASSES as NUM_AA_CLASSES  # 22
 from . import gru
 from .geometry import calpha_to_main_chain, mds_coords
 from ..features.dca import NUM_DCA_CHANNELS
-from .trunk import trunk_apply, trunk_params
+from .trunk import PackedTrunk, pack_bf16, trunk_apply, trunk_apply_bf16, trunk_params
 
 WIDTH = 512
 CWIDTH = 128
@@ -49,13 +52,22 @@ def init_params(seed: int = 0, width: int = WIDTH, cwidth: int = CWIDTH, num_blo
     }
 
 
+def pack_params(params, precision: str):
+    """The parameters as :func:`forward` takes them at ``precision``: for
+    ``bf16`` the trunk packed once for its kernels (``trunk.pack_bf16``)."""
+    if precision == "bf16":
+        return {**params, "trunk": pack_bf16(params["trunk"])}
+    return params
+
+
 def forward(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs: int, nres: int,
             nloops: int, refine_steps: int, *, adaptive_recycle: bool = False,
-            adaptive_patience: int = 2):
+            adaptive_patience: int = 2, precision: str = "fp32"):
     """Run the network.
 
     Args:
-      params: from :func:`init_params` or ``weights.py``, on ``alnmat``'s device.
+      params: from :func:`init_params` or ``weights.py``, on ``alnmat``'s
+          device, through :func:`pack_params` for ``precision``.
       alnmat: (n_pad, l_pad) int residue classes (0-21), right-padded.
       x2: (l_pad, l_pad, 443) pair features [DCA 442 | dmap seed 1], zero
           outside the valid block.
@@ -64,6 +76,8 @@ def forward(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs: int, nres: in
           best mean confidence has not improved for ``adaptive_patience``
           recycles in a row (``-n auto``).
       refine_steps: refinement steps, before and after recycling.
+      precision: ``fp32``, or ``bf16``: the trunk in bf16 with fp32
+          accumulation (``trunk.trunk_apply_bf16``); everything else fp32.
 
     Returns:
       coords (l_pad, 5, 3), confidence (l_pad,), and the recycles run (int).
@@ -80,12 +94,18 @@ def forward(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs: int, nres: in
     mat1d = mat1d * row_mask[:, None]
 
     pair = mat1d[:, None, :] * mat1d[None, :, :]                               # (L, L, 512)
-    resinp_base = torch.cat([pair, x2[:, :, :-1]], dim=2)                     # 954 channels
+    if precision == "bf16":
+        trunk_pass = _bf16_trunk_pass(params["trunk"], pair, x2, pair_mask)
+    else:
+        resinp_base = torch.cat([pair, x2[:, :, :-1]], dim=2)                 # 954 channels
+
+        def trunk_pass(dmap_channel):
+            resinp = torch.cat([resinp_base, dmap_channel[:, :, None]], dim=2)
+            return trunk_apply(params["trunk"], resinp[None], pair_mask[None, :, :, None])[0]
     del pair
 
     def run_iteration(dmap_channel):
-        resinp = torch.cat([resinp_base, dmap_channel[:, :, None]], dim=2)
-        out = trunk_apply(params["trunk"], resinp[None], pair_mask[None, :, :, None])[0]
+        out = trunk_pass(dmap_channel)
         dm = out[:, :, 0]
         conf = (out[:, :, 1] * row_mask[None, :]).sum(dim=1) / nres
         mds = mds_coords(dm, nres)
@@ -120,3 +140,26 @@ def forward(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs: int, nres: in
     best_coords = refine.refine_coords(best_coords.contiguous(), refine_steps, nres)
     coords = calpha_to_main_chain(best_coords, nres)
     return coords, torch.sigmoid(best_conf), iterations
+
+
+def _bf16_trunk_pass(packed, pair: torch.Tensor, x2: torch.Tensor, pair_mask: torch.Tensor):
+    """The bf16 engine's trunk input, built once: a (1, L, L, k_pad) bf16 map
+    [pair | DCA 442 | dmap 1 | zeros to k_pad], the width the GEMM kernel
+    reads. Returns a function that writes a pass's dmap channel into its slot
+    (in place; passes run in stream order) and runs the trunk."""
+    if not isinstance(packed, PackedTrunk):
+        raise TypeError("precision='bf16' needs the trunk packed by "
+                        "gruresnet.pack_params(params, 'bf16')")
+    l_pad, _, width = pair.shape
+    slot = width + NUM_DCA_CHANNELS
+    resinp = torch.zeros((1, l_pad, l_pad, packed.k_pad), dtype=torch.bfloat16,
+                         device=pair.device)
+    resinp[0, :, :, :width] = pair
+    resinp[0, :, :, width:slot] = x2[:, :, :-1]
+    mask = pair_mask[None, :, :, None]
+
+    def trunk_pass(dmap_channel):
+        resinp[0, :, :, slot] = dmap_channel
+        return trunk_apply_bf16(packed, resinp, mask)[0]
+
+    return trunk_pass

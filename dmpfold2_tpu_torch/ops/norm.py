@@ -3,7 +3,8 @@
 Counterpart of ``dmpfold2_tpu/ops/norm.py:masked_instance_norm``: statistics
 over the valid region only, biased variance, eps 1e-5, output re-masked so
 padding stays exactly zero. With a full mask it is torch.nn.InstanceNorm2d
-(affine).
+(affine). :func:`scale_shift_from_sums` is the same norm from sums that a
+kernel's epilogue took (the bf16 engine).
 """
 
 from __future__ import annotations
@@ -21,3 +22,21 @@ def masked_instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     var = ((x - mean).square() * mask).sum(dim=(2, 3), keepdim=True) / count
     out = (x - mean) / torch.sqrt(var + eps) * g + b
     return out * mask
+
+
+def scale_shift_from_sums(s: torch.Tensor, ss: torch.Tensor, nres: torch.Tensor,
+                          gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5):
+    """Per-target InstanceNorm affine from masked sums over [0, nres)^2.
+
+    Counterpart of ``dmpfold2_tpu/kernels/conv_block.py:conv5x5_maxout_stats``
+    (:466-476) and ``gemm_maxout_norm`` (:618-627): (B, C) fp32 sums and sums
+    of squares, (B,) int32 ``nres`` -> (scale, shift), each (B, C), with
+    ``normalized = x * scale + shift``. The variance is E[x^2] - E[x]^2,
+    clamped at 0.
+    """
+    nr = nres.to(torch.float32)[:, None]
+    count = torch.clamp(nr * nr, min=1.0)
+    mean = s / count
+    var = torch.clamp(ss / count - mean * mean, min=0.0)
+    scale = gamma * torch.rsqrt(var + eps)
+    return scale, beta - mean * scale

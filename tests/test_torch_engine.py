@@ -34,6 +34,7 @@ PORT_MODULES = [
     "dmpfold2_tpu_torch.models.geometry", "dmpfold2_tpu_torch.models.gruresnet",
     "dmpfold2_tpu_torch.kernels._build", "dmpfold2_tpu_torch.kernels.vgru",
     "dmpfold2_tpu_torch.kernels.rgru", "dmpfold2_tpu_torch.kernels.refine",
+    "dmpfold2_tpu_torch.kernels.conv_block",
     "dmpfold2_tpu_torch.utils.aln", "dmpfold2_tpu_torch.utils.pdb",
 ]
 
@@ -117,13 +118,24 @@ def test_no_weights_raises_without_download():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--precision", "bf16"], "not yet ported"),
     (["--precision", "fp32_strict"], "not yet ported"),
     (["-o", "out"], "batch mode"),
 ])
 def test_cli_not_ported_options_raise(argv, match, toy_npz):
     with pytest.raises(NotImplementedError, match=match):
         run_dmpfold(["-i", EXAMPLE_ALN, "-d", "cpu", "-w", toy_npz] + argv)
+
+
+def test_cli_bf16_fold_writes_pdb(toy_npz, capsys):
+    """``--precision bf16`` folds (the kernels' plain versions on the CPU)."""
+    run_dmpfold(["-i", EXAMPLE_ALN, "-d", "cpu", "-w", toy_npz, "-n", "1", "-m", "10",
+                 "--precision", "bf16"])
+    lines = capsys.readouterr().out.splitlines()
+    atoms = [line for line in lines if line.startswith("ATOM")]
+    assert lines[0].startswith("REMARK  CONF:") and lines[-1] == "END"
+    assert len(atoms) == 406  # PF10963: 82 residues x 5 atoms, less glycine CBs
+    xyz = np.array([[float(a[30:38]), float(a[38:46]), float(a[46:54])] for a in atoms])
+    assert np.isfinite(xyz).all()
 
 
 def _run_smoke(cwd, script):
