@@ -29,11 +29,25 @@ Phases, each printing one JSON line:
    ``phase_cpu`` for why the atoms get the wider bound). bf16 at ``-n 0
    -m 0``: confidences, and one trunk pass's distance-map and confidence
    channels (see ``phase_cpu_bf16`` for the bounds).
+7. train   -- bf16 training at full width through ``DMPDataset``,
+   ``pad_to_bucket``, ``make_optimizer`` and ``train_step``, on two samples
+   written to a temp dir: four micro-steps (nloops 0-3, accumulation over 2)
+   and an eval step on PF10963 with exact launch counts (16 argmax launches
+   per trunk pass, no other kernel) and the parameters moving only at the
+   accumulation boundary; then a crop-350 step (bucket 768 x 352, nloops 3):
+   wall time, a device profile, peak memory. Last, the step on the card
+   against the CPU, refinement's backward and the bf16 training trunk's
+   backward (see ``phase_train_cpu``).
+
+Phase 3 also holds the conv kernel's argmax mode (bf16 training) against its
+stats mode and its plain version, and ``Conv5x5MaxoutDiff``'s gradients
+against autograd through the plain version, and times both directions.
 
 Then the ``kernels`` line (launches from phase 4: the fp32 fold for vgru,
-rgru and refine, the bf16 fold for the two trunk kernels), and last
-``{"ok": true, "device": {...}}``. Any failure raises: the script exits
-nonzero without the last line. It imports neither JAX nor the JAX package.
+rgru and refine, the bf16 fold for the two trunk kernels; from phase 7's
+micro-steps for conv5x5_maxout_diff), and last ``{"ok": true, "device":
+{...}}``. Any failure raises: the script exits nonzero without the last
+line. It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,9 +80,11 @@ WIDTH, CWIDTH, BLOCKS = 512, 128, 16
 ITERATIONS, MINSTEPS = 10, 100
 FOLD_REPEATS = 5  # timed folds per engine; the first is the one counted
 EXPECTED_LAUNCHES = {
-    "fp32": {"vgru": 1, "rgru": 70, "refine": 2, "conv5x5_maxout": 0, "gemm_maxout": 0},
+    "fp32": {"vgru": 1, "rgru": 70, "refine": 2, "conv5x5_maxout": 0, "gemm_maxout": 0,
+             "conv5x5_maxout_diff": 0},
     # 11 trunk passes: one input layer and 16 block convs each
-    "bf16": {"vgru": 1, "rgru": 70, "refine": 2, "conv5x5_maxout": 176, "gemm_maxout": 11},
+    "bf16": {"vgru": 1, "rgru": 70, "refine": 2, "conv5x5_maxout": 176, "gemm_maxout": 11,
+             "conv5x5_maxout_diff": 0},
 }
 GRU_TOL = 1e-4     # fp32, sums in another order than cuBLAS over 512/256 terms
 REFINE_TOL = 1e-4  # the JAX package's own kernel-vs-XLA bound (tests/test_pallas_refine.py)
@@ -266,6 +283,7 @@ def phase_kernels(params) -> dict:
                       "bound_by": by, "library_ms": None}
 
     rows.update(_trunk_kernels(params, rng, cases))
+    rows["conv5x5_maxout_diff"] = _argmax_kernel(params, rng, cases)
 
     emit({"phase": "kernels", "cases": cases})
     for row in rows.values():
@@ -365,6 +383,171 @@ def _trunk_kernels(params, rng, cases) -> dict:
     return rows
 
 
+# the argmax mode and conv5x5_maxout_diff: the shapes of the kernel check
+# (TRUNK_CASES and the training crop's bucket, B 1, L 352) and of the timing
+# (the two training buckets of phase train)
+DIFF_CASES = TRUNK_CASES + ((1, 352, [350]),)
+DIFF_TIMING_L = (L_PAD, 352)
+DIFF_GRAD_CASES = ((1, L_PAD, [NRES]), (2, 53, [53, 20]), (1, 352, [350]))
+# the Function's gradients against autograd through the plain version, with
+# the same bf16 cotangent, zero at groups whose plain top-2 margin is below
+# 1e-3 of the maximum: there the kernel's fp32 sums (in another order, ~1e-6
+# relative) may pick the other slice, and a flip moves db by a whole
+# cotangent. Elsewhere dx is the one bf16 rounding of an fp32 sum: one bf16
+# ulp of max(|ref|, 1); dw and db are fp32 sums of the same products in
+# another order, over up to B L^2 = 123904 terms (~sqrt(n) * 2^-24 ~ 2e-5
+# relative): 1e-3 of max(|ref|, 1).
+TIE_MARGIN = 1e-3
+DW_DB_RTOL = 1e-3
+
+
+def _argmax_kernel(params, rng, cases) -> dict:
+    """The conv kernel's argmax mode and Conv5x5MaxoutDiff on the card, with
+    block 0's weights: the argmax output against stats mode (the same bits)
+    and the plain version (one bf16 ulp), each index against the plain fp32
+    maximum (within one bf16 ulp), a second launch (the same bits); the
+    Function's dx, dw and db against autograd through the plain version; then
+    times of both directions at the two training buckets. Returns the row of
+    conv5x5_maxout_diff."""
+    import torch.nn.functional as F
+
+    from dmpfold2_tpu_torch.kernels import conv_block
+
+    dev = torch.device("cuda")
+    mx = params["trunk"]["blocks"][0]["maxout"]
+    w, b = mx["w"].to(dev), mx["b"].to(dev)
+    wp, bp = conv_block.pack_conv5x5_weights(w, b)
+    c_out = w.shape[0]
+
+    def inputs(batch, l, nres):
+        valid = (torch.arange(l)[None, :] < torch.tensor(nres)[:, None]).float()
+        x = (torch.from_numpy(rng.normal(size=(batch, l, l, CWIDTH)).astype(np.float32))
+             * valid[:, :, None, None] * valid[:, None, :, None])
+        return x.to(torch.bfloat16).to(dev), torch.tensor(nres, dtype=torch.int32, device=dev)
+
+    def plain_pre_max(x):
+        """The plain version's fp32 values before the max: (B, L, L, C/4, 4)."""
+        wf = wp.float().view(5, 5, CWIDTH, c_out).permute(3, 2, 0, 1)
+        y = F.conv2d(x.float().permute(0, 3, 1, 2), wf, bp, padding=2).permute(0, 2, 3, 1)
+        return y.reshape(*y.shape[:3], c_out // 4, 4)
+
+    worst_ulp = worst_abs = worst_idx_ulp = 0.0
+    for batch, l, nres in DIFF_CASES:
+        x, nr = inputs(batch, l, nres)
+        out, idx = conv_block.conv5x5_maxout_argmax(x, wp, bp)
+        out2, idx2 = conv_block.conv5x5_maxout_argmax(x, wp, bp)
+        stats_out = conv_block.conv5x5_maxout_stats(x, wp, bp, nr)[0]
+        ref, ref_idx = conv_block.conv5x5_maxout_argmax_plain(x, wp, bp)
+        pre = plain_pre_max(x)
+        top = pre.amax(dim=-1)
+        chosen = pre.gather(-1, idx.long().unsqueeze(-1))[..., 0]
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        ulp = (d / (BF16_ULP * ref.float().abs().clamp(min=1.0))).max().item()
+        idx_ulp = ((top - chosen) / (BF16_ULP * top.abs().clamp(min=1.0))).max().item()
+        case = {"kernel": "conv5x5_maxout_argmax", "case": f"B={batch} L={l} nres={nres}",
+                "max_abs_err": d.max().item(), "max_err_in_bf16_ulps": ulp,
+                "same_bits_as_stats_mode": bool(torch.equal(out, stats_out)),
+                "index_gap_to_max_in_bf16_ulps": idx_ulp,
+                "index_equal_to_plain_share": (idx == ref_idx).float().mean().item(),
+                "second_launch_identical": bool(torch.equal(out, out2) and torch.equal(idx, idx2))}
+        case["ok"] = (ulp <= 1.0 and idx_ulp <= 1.0 and case["same_bits_as_stats_mode"]
+                      and case["second_launch_identical"])
+        cases.append(case)
+        worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, d.max().item())
+        worst_idx_ulp = max(worst_idx_ulp, idx_ulp)
+
+    # ---- the Function's gradients against autograd through the plain version
+    grad_errs = {}
+    for batch, l, nres in DIFF_GRAD_CASES:
+        x, _ = inputs(batch, l, nres)
+        top2 = plain_pre_max(x).topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > TIE_MARGIN * top2[..., 0].abs().clamp(min=1.0)
+        g = torch.from_numpy(rng.normal(size=clear.shape).astype(np.float32)).to(dev)
+        g = (g * clear).to(torch.bfloat16)
+        xg, wg, bg = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        got = torch.autograd.grad(conv_block.Conv5x5MaxoutDiff.apply(xg, wg, bg), (xg, wg, bg), g)
+        # w rounded before it becomes a leaf: autograd through a cast to bf16
+        # would round the reference's dw to bf16 too
+        xr, wr, br = (t.detach().clone().requires_grad_()
+                      for t in (x.float(), w.to(torch.bfloat16).float(), b))
+        y = F.conv2d(xr.permute(0, 3, 1, 2), wr, br, padding=2)
+        y = y.permute(0, 2, 3, 1).reshape(*x.shape[:3], c_out // 4, 4).amax(dim=-1)
+        want = torch.autograd.grad(y, (xr, wr, br), g.float())
+        for name, a, r, tol in zip(("dx", "dw", "db"), got, want, (BF16_ULP, DW_DB_RTOL, DW_DB_RTOL)):
+            e = ((a.float() - r).abs() / r.abs().clamp(min=1.0)).max().item()
+            grad_errs[name] = max(grad_errs.get(name, 0.0), e)
+        grad_errs["tie_share"] = max(grad_errs.get("tie_share", 0.0),
+                                     1.0 - clear.float().mean().item())
+    grad_tols = {"dx": BF16_ULP, "dw": DW_DB_RTOL, "db": DW_DB_RTOL}
+    grad_ok = all(grad_errs[k] <= tol for k, tol in grad_tols.items())
+    cases.append({"kernel": "conv5x5_maxout_diff", "case": "dx, dw, db vs autograd through "
+                  "the plain version (B 1 L 88, B 2 L 53, B 1 L 352)", "max_rel_err": grad_errs,
+                  "tol": grad_tols, "ok": grad_ok})
+
+    # ---- times of both directions
+    timings = []
+    for l in DIFF_TIMING_L:
+        x, _ = inputs(1, l, [l])
+        npix = l * l
+        fwd_flops = 2.0 * npix * wp.shape[0] * c_out
+        fwd_bytes = 2 * (x.numel() + wp.numel() + npix * c_out // 4) + 4 * c_out + npix * c_out // 4
+        # the backward reads x, w, the cotangent and the index and writes dx,
+        # dw and db; dx and dw are each one product of the forward's size
+        bwd_bytes = (2 * (x.numel() + npix * c_out // 4) + npix * c_out // 4 + 4 * wp.numel()
+                     + 2 * x.numel() + 4 * wp.numel() + 4 * c_out)
+        row = {"L": l}
+        row["fwd_ms"] = device_ms(lambda: conv_block.conv5x5_maxout_argmax(x, wp, bp),
+                                  "conv5x5_maxout_argmax_kernel", reps=20)
+        row["fwd_plain_ms"] = time_ms(lambda: conv_block.conv5x5_maxout_argmax_plain(x, wp, bp),
+                                      reps=3)
+        x_nchw = x.permute(0, 3, 1, 2)
+        w_lib = wp.view(5, 5, CWIDTH, c_out).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        row["fwd_library_ms"] = time_ms(lambda: F.conv2d(x_nchw, w_lib, padding=2), reps=20)
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(fwd_flops, fwd_bytes, PEAK_BF16_TENSOR)
+        g = torch.from_numpy(rng.normal(size=(1, l, l, c_out // 4)).astype(np.float32)).to(
+            dev).to(torch.bfloat16)
+        xg, wg, bg = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        out = conv_block.Conv5x5MaxoutDiff.apply(xg, wg, bg)
+        row["bwd_ms"] = time_ms(lambda: torch.autograd.grad(out, (xg, wg, bg), g,
+                                                            retain_graph=True), reps=5)
+        xr, wr, br = (t.detach().clone().requires_grad_()
+                      for t in (x.float(), w.to(torch.bfloat16).float(), b))
+        y = F.conv2d(xr.permute(0, 3, 1, 2), wr, br, padding=2)
+        y = y.permute(0, 2, 3, 1).reshape(1, l, l, c_out // 4, 4).amax(dim=-1)
+        row["bwd_plain_ms"] = time_ms(lambda: torch.autograd.grad(y, (xr, wr, br), g.float(),
+                                                                  retain_graph=True), reps=3)
+        xl, wl, bl = (t.detach().clone().requires_grad_() for t in
+                      (x_nchw, w_lib, b.to(torch.bfloat16)))
+        yl = F.conv2d(xl, wl, bl, padding=2).permute(0, 2, 3, 1)
+        yl = yl.reshape(1, l, l, c_out // 4, 4).amax(dim=-1)
+        row["bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), g,
+                                                                    retain_graph=True), reps=5)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(2 * fwd_flops, bwd_bytes,
+                                                            PEAK_BF16_TENSOR)
+        timings.append(row)
+        del out, y, yl
+    cases.append({"kernel": "conv5x5_maxout_diff", "case": "times, B 1", "timings": timings})
+    main = timings[-1]  # L 352, the crop bucket, where training spends its time
+    return {"name": "conv5x5_maxout_diff", "route": "cuda",
+            "source": "dmpfold2_tpu_torch/csrc/conv5x5_maxout.cu",
+            "wrapper": "dmpfold2_tpu_torch/kernels/conv_block.py:Conv5x5MaxoutDiff (the "
+                       "kernel's argmax mode forward, cuDNN and cuBLAS backward)",
+            "replaces": "dmpfold2_tpu/kernels/conv_block.py:646",
+            "max_abs_err": worst_abs, "max_err_in_bf16_ulps": worst_ulp,
+            "index_gap_in_bf16_ulps": worst_idx_ulp, "grad_max_rel_err": grad_errs,
+            "ms": main["fwd_ms"] + main["bwd_ms"],
+            "plain_ms": main["fwd_plain_ms"] + main["bwd_plain_ms"],
+            "bound_ms": main["fwd_bound_ms"] + main["bwd_bound_ms"], "bound_by": "operations",
+            "library_ms": main["fwd_library_ms"] + main["bwd_library_ms"],
+            "library": "forward: F.conv2d channels-last bf16 (cuDNN), the conv only, without "
+                       "bias or maxout (computes less); backward: autograd through F.conv2d "
+                       "bf16 + bias + amax, which splits a tie's gradient and rounds dw and db "
+                       "to bf16 (computes otherwise)",
+            "shape": "B 1, L 352, fwd + bwd", "timings": timings}
+
+
 def _counters():
     """kernel name -> (module, name of its launch counter)."""
     from dmpfold2_tpu_torch.kernels import conv_block, refine, rgru, vgru
@@ -372,7 +555,17 @@ def _counters():
     return {"vgru": (vgru, "launches"), "rgru": (rgru, "launches"),
             "refine": (refine, "launches"),
             "conv5x5_maxout": (conv_block, "conv_launches"),
-            "gemm_maxout": (conv_block, "gemm_launches")}
+            "gemm_maxout": (conv_block, "gemm_launches"),
+            "conv5x5_maxout_diff": (conv_block, "conv_argmax_launches")}
+
+
+def _reset_counters() -> None:
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def _read_counters() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
 
 
 def phase_fold(params, precision: str) -> tuple[dict, tuple]:
@@ -384,14 +577,12 @@ def phase_fold(params, precision: str) -> tuple[dict, tuple]:
     kw = dict(device="cuda", params=params, iterations=ITERATIONS, minsteps=MINSTEPS,
               return_alnmat=True, config=FoldConfig(precision=precision))
     aln_to_coords(EXAMPLE_ALN, **kw)  # warm-up: cuDNN and cuSOLVER set-up
-    counters = _counters()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    _reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     coords, confs, alnmat = aln_to_coords(EXAMPLE_ALN, **kw)
     wall = time.perf_counter() - t0
-    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    launches = _read_counters()
     expected = EXPECTED_LAUNCHES[precision]
     # the spread: the bf16 fold is bound by the host issuing launches, and
     # the host is shared, so one fold's wall time says little
@@ -622,6 +813,402 @@ def phase_cpu_bf16(params):
     return store[0]
 
 
+# ---------------------------------------------------------------- training
+#
+# Phase train: bf16 training at full width through the port's entry points
+# (DMPDataset, pad_to_bucket, make_optimizer, train_step). Two samples are
+# written as tdb/ + aln/ files: "pf", PF10963's alignment (252 x 82) with a
+# seeded 82-residue target, and "crop", a seeded 600 x 400 alignment with a
+# 400-residue target that validation-mode loading crops to 350 (bucket 768 x
+# 352, the crop the JAX package's training step was sized for).
+TRAIN_NLOOPS = (0, 1, 2, 3)  # one micro-step each, accumulation over 2
+CROP_ROWS, CROP_LEN, CROP_NLOOPS, CROP_TIMED = 600, 400, 3, 3
+# card vs CPU, one step on "pf" at nloops 0 without dropout or teacher
+# forcing (phase_train_cpu): the loss within TRAIN_LOSS_RTOL relative, the
+# gradients of TRAIN_HELD_CASE to a cosine of TRAIN_GRAD_COS per top-level
+# parameter group. Two models: "random", the seed-0 weights, whose CA trace is
+# collapsed, and "spread", the same with the coordinate head scaled by
+# HEAD_SCALE (as the toy model of tests/test_torch_model.py is scaled), whose
+# trace is protein-sized. Refinement's backward is held on its own at
+# TRAIN_CPU_REFINE steps.
+TRAIN_LOSS_RTOL = {"bf16": 1e-3, "fp32": 1e-4}
+TRAIN_GRAD_COS = 0.99
+HEAD_SCALE = 256.0
+TRAIN_CPU_REFINE = 10
+TRAIN_HELD_CASE = ("random", "fp32", 0)
+TRAIN_CPU_CASES = (TRAIN_HELD_CASE, ("random", "fp32", TRAIN_CPU_REFINE), ("random", "bf16", 0),
+                   ("spread", "fp32", TRAIN_CPU_REFINE))
+# the atoms besides CA at fixed offsets from it (Angstrom): N, C, O, CB
+ATOM_OFFSETS = np.array([[-1.2, 0.6, 0.3], [1.3, 0.5, -0.2], [1.9, 1.4, 0.4],
+                         [-0.4, -1.3, 0.9]], np.float32)
+
+
+def _write_tdb(path: str, ca: np.ndarray) -> None:
+    """A tdb file the reference's reader takes: the residue letter at column
+    5, then N, CA, C, O, CB as 9-character floats from column 39."""
+    atoms = np.concatenate([ca[:, None] + ATOM_OFFSETS[None, :1], ca[:, None],
+                            ca[:, None] + ATOM_OFFSETS[None, 1:]], axis=1)
+    with open(path, "w") as fh:
+        fh.write("# seeded target\n")
+        for res in atoms:
+            fh.write(" " * 5 + "A" + " " * 33 + "".join(f"{v:9.3f}" for v in res.ravel()) + "\n")
+
+
+def _write_train_data(root: str, rng) -> None:
+    os.makedirs(os.path.join(root, "tdb"))
+    os.makedirs(os.path.join(root, "aln"))
+    with open(EXAMPLE_ALN) as src, open(os.path.join(root, "aln", "pf.aln"), "w") as dst:
+        dst.write(src.read())
+    _write_tdb(os.path.join(root, "tdb", "pf.tdb"), _chain(NRES, rng))
+    letters = np.array(list("ARNDCQEGHILKMFPSTWYV-"))
+    rows = ["".join(r) for r in letters[rng.integers(0, 21, (CROP_ROWS, CROP_LEN))]]
+    with open(os.path.join(root, "aln", "crop.aln"), "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    _write_tdb(os.path.join(root, "tdb", "crop.tdb"), _chain(CROP_LEN, rng))
+
+
+def _load_batch(data_dir: str, target: str):
+    from dmpfold2_tpu_torch.train.dataset import DMPDataset, pad_to_bucket
+    from dmpfold2_tpu_torch.train.step import TrainBatch
+
+    dataset = DMPDataset([[target]], data_dir, augment=False)
+    return TrainBatch(*pad_to_bucket([dataset[0]]))
+
+
+def phase_train(params, data_dir: str) -> int:
+    """bf16 training on the card: four accumulating micro-steps and an eval
+    step on "pf" (exact launch counts, parameters moving only at the
+    accumulation boundary), then the crop-350 step's time, profile and
+    memory. Returns the argmax kernel's launches in the micro-steps."""
+    from dmpfold2_tpu_torch.train.step import leaves, make_optimizer, train_step, trainable
+
+    dev = torch.device("cuda")
+    weights = trainable(params, dev)
+    optimizer = make_optimizer(weights, 1e-4, accum_steps=2)
+    batch = _load_batch(data_dir, "pf")
+    steps, failed, argmax_total = [], [], 0
+    for k, nloops in enumerate(TRAIN_NLOOPS):
+        before = [p.detach().clone() for p in leaves(weights)]
+        _reset_counters()
+        t0 = time.perf_counter()
+        metrics = train_step(weights, optimizer, batch, seed=k, nloops=nloops, precision="bf16")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters()
+        argmax_total += launches["conv5x5_maxout_diff"]
+        moved = any(not torch.equal(a, p) for a, p in zip(before, leaves(weights)))
+        expected = {**{name: 0 for name in launches},
+                    "conv5x5_maxout_diff": BLOCKS * (nloops + 1)}
+        checks = {"finite": bool(np.isfinite(metrics["loss"])),
+                  "not_skipped": metrics["skipped"] == 0.0,
+                  "tier_save_conv": metrics["remat"] == "save_conv",
+                  "launches": launches == expected,
+                  "moved_at_boundary_only": moved == (k % 2 == 1) == metrics["updated"]}
+        steps.append({"micro_step": k + 1, "nloops": nloops, "loss": metrics["loss"],
+                      "wall_s": wall, "launches": launches, "moved": moved, "checks": checks})
+        failed += [f"micro-step {k + 1}: {c}" for c, ok in checks.items() if not ok]
+
+    before = [p.detach().clone() for p in leaves(weights)]
+    _reset_counters()
+    metrics = train_step(weights, optimizer, batch, seed=9, nloops=2, train=False,
+                         precision="bf16")
+    launches = _read_counters()
+    unchanged = all(torch.equal(a, p) for a, p in zip(before, leaves(weights)))
+    eval_checks = {"finite": bool(np.isfinite(metrics["loss"])), "params_unchanged": unchanged,
+                   "launches": launches == {**{n: 0 for n in launches},
+                                            "conv5x5_maxout_diff": 3 * BLOCKS}}
+    failed += [f"eval: {c}" for c, ok in eval_checks.items() if not ok]
+    emit({"phase": "train", "part": "micro-steps", "target": "pf", "bucket": list(
+        batch.alnmat.shape[1:]), "accum_steps": 2, "steps": steps,
+        "eval": {"nloops": 2, "loss": metrics["loss"], "launches": launches,
+                 "checks": eval_checks}})
+    if failed:
+        raise AssertionError(f"train checks failed: {failed}")
+    del optimizer
+    _train_crop(weights, data_dir)
+    return argmax_total
+
+
+# device-kernel name fragments of a training step -> category, first match wins
+TRAIN_CATEGORIES = (
+    ("argmax kernel", ("conv5x5_maxout_argmax_kernel",)),
+    ("cuDNN convolutions (the block convs' dx)", ("convolution", "dgrad", "wgrad", "fprop",
+                                                   "cudnn", "implicit", "xmma_conv")),
+    ("GEMMs (dw taps, GRUs, input layer, head)", ("gemm", "gemv", "dot_kernel", "splitk",
+                                                   "cublas", "cutlass")),
+)
+
+
+def _train_crop(weights, data_dir: str) -> None:
+    """One warm-up step and CROP_TIMED timed steps on "crop" at nloops 3, one
+    more under torch.profiler; peak memory and the remat tier."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmpfold2_tpu_torch.train.step import make_optimizer, train_step
+
+    optimizer = make_optimizer(weights, 1e-4)
+    batch = _load_batch(data_dir, "crop")
+    kw = dict(nloops=CROP_NLOOPS, precision="bf16")
+    metrics = train_step(weights, optimizer, batch, seed=100, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for k in range(CROP_TIMED):
+        t0 = time.perf_counter()
+        metrics = train_step(weights, optimizer, batch, seed=101 + k, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    # device activity only: the step issues about 0.7 million launches, and
+    # host-side events as well take minutes to aggregate
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(weights, optimizer, batch, seed=200, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_cat, launches, top = {}, 0, []
+    for evt in prof.key_averages():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        ms = (us if us is not None else getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
+        cat = next((c for c, frags in TRAIN_CATEGORIES
+                    if any(f in evt.key.lower() for f in frags)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        launches += evt.count
+        top.append({"name": evt.key[:90], "count": evt.count, "ms": ms})
+    busy = sum(by_cat.values())
+    emit({"phase": "train", "part": "crop", "bucket": list(batch.alnmat.shape[1:]),
+          "nres": int(batch.nres[0]), "nloops": CROP_NLOOPS, "remat": metrics["remat"],
+          "loss": metrics["loss"], "step_wall_s": walls,
+          "step_wall_s_median": float(np.median(walls)), "peak_memory_gb": peak / 1e9,
+          "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+          "idle_share": 1.0 - busy / wall_ms, "kernel_launches": launches,
+          "by_category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+          "top_kernels": sorted(top, key=lambda t: -t["ms"])[:10]})
+    if not np.isfinite(metrics["loss"]) or metrics["skipped"]:
+        raise AssertionError(f"crop step: loss {metrics['loss']}, skipped {metrics['skipped']}")
+
+
+@contextlib.contextmanager
+def _conditioning_probe(store: dict):
+    """Record, along one step's path from the trunk to the loss, each stage's
+    output and the loss's gradient with respect to it: the trunk's distance
+    map (MDS's input), the MDS coordinates, the coordinate head's CA trace
+    (refinement's first input), the refined trace (backbone completion's
+    input) and the predicted atoms; and the loss's Kabsch superposition (the
+    same formula in fp64): the (3, 3) covariance's singular values and the
+    rotation."""
+    from dmpfold2_tpu_torch.models import gruresnet
+    from dmpfold2_tpu_torch.train import loss
+
+    originals = (loss.tmscore, gruresnet.mds_coords, gruresnet.refine_coords)
+
+    def keep(name, t, n):
+        """t and the gradient with respect to it, on the first n rows (and
+        columns of the distance map), the valid ones."""
+        def valid(v):
+            v = v.detach().double().cpu()[:n]
+            return (v[:, :n] if name == "dm" else v).reshape(-1)
+
+        store[name] = valid(t)
+        if t.requires_grad:
+            t.register_hook(lambda g: store.__setitem__("grad_" + name, valid(g)))
+
+    def mds(dm, nres, *args):
+        keep("dm", dm, nres)
+        out = originals[1](dm, nres, *args)
+        keep("mds", out, nres)
+        return out
+
+    def refine(ca, n_steps, nres):
+        # at nloops 0 the step refines twice: the first pass, then the best one
+        if "raw_ca" not in store:
+            keep("raw_ca", ca, nres)
+            store["raw_ca_full"] = ca.detach().cpu()
+        out = originals[2](ca, n_steps, nres)
+        keep("refined_ca", out, nres)
+        return out
+
+    def tmscore(target_atoms, pred_atoms, n_atoms=None):
+        n = target_atoms.shape[0] if n_atoms is None else n_atoms
+        keep("pred_atoms", pred_atoms, n)
+        p, q = (t[:n].detach().double().cpu() for t in (target_atoms, pred_atoms))
+        p, q = p - p.mean(dim=0), q - q.mean(dim=0)
+        u, sv, vt = torch.linalg.svd(p.T @ q)
+        det = torch.linalg.det(vt.T @ u.T)
+        rot = vt.T @ torch.diag(torch.stack([torch.ones_like(det), torch.ones_like(det), det])) @ u.T
+        store.update(singular_values=sv.tolist(), rot=rot, radius=float(q.norm(dim=1).max()))
+        return originals[0](target_atoms, pred_atoms, n_atoms)
+
+    loss.tmscore, gruresnet.mds_coords, gruresnet.refine_coords = tmscore, mds, refine
+    try:
+        yield
+    finally:
+        loss.tmscore, gruresnet.mds_coords, gruresnet.refine_coords = originals
+
+
+def _geometry_vjp(ca: torch.Tensor, cot: torch.Tensor, refine_steps: int, nres: int,
+                  device: str, dtype) -> torch.Tensor:
+    """The gradient, with respect to the coordinate head's CA trace, of the
+    step's geometric tail at nloops 0 (two refinements, then backbone
+    completion) for the cotangent ``cot`` on its (L, 5, 3) atoms."""
+    from dmpfold2_tpu_torch.models.geometry import calpha_to_main_chain, refine_coords
+
+    x = ca.to(device, dtype).requires_grad_()
+    out = calpha_to_main_chain(refine_coords(refine_coords(x, refine_steps, nres),
+                                             refine_steps, nres), nres)
+    (g,) = torch.autograd.grad(out, x, cot.to(device, dtype))
+    return g.detach().double().cpu().reshape(-1)
+
+
+def _geometry_witness(ca: torch.Tensor, cot: torch.Tensor, refine_steps: int, nres: int) -> dict:
+    """The geometric tail's gradient on the card (fp32) and on the CPU (fp32
+    and fp64) for one trace and cotangent, with the cosines between them;
+    ``amplification`` is |gradient| / |cotangent| in fp64."""
+    card, cpu32, cpu64 = (_geometry_vjp(ca, cot, refine_steps, nres, dev, dt) for dev, dt in (
+        ("cuda", torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)))
+    return {"card_vs_cpu": _cosine(card, cpu32), "cpu_fp32_vs_cpu_fp64": _cosine(cpu32, cpu64),
+            "amplification": float(cpu64.norm() / cot.double().norm())}
+
+
+def _step_grads(params, batch, device: str, precision: str, refine_steps: int,
+                head_scale: float = 1.0):
+    """One step's loss and gradients on ``device`` (nloops 0, no dropout, no
+    teacher forcing), the gradients flattened per top-level parameter group,
+    on the CPU, and what :func:`_conditioning_probe` records."""
+    from dmpfold2_tpu_torch.train.step import batch_loss_native, leaves, resolve_remat, trainable
+
+    weights = trainable(params, device)
+    with torch.no_grad():
+        weights["coord_fc"].mul_(head_scale)
+    alnmat = torch.from_numpy(batch.alnmat).to(device)
+    targets = torch.from_numpy(batch.targets).to(device)
+    draws = [(False, torch.zeros(alnmat.shape[2], 3))]
+    remat = resolve_remat(weights, 1, alnmat.shape[2], 0, precision == "bf16")
+    probe = {}
+    with _conditioning_probe(probe):
+        loss, _ = batch_loss_native(weights, alnmat, targets, batch.nseqs, batch.nres, draws,
+                                    nloops=0, refine_steps=refine_steps, precision=precision,
+                                    remat=remat)
+        names = sorted(weights)  # leaves() walks the top-level groups in this order
+        grads = torch.autograd.grad(loss, [p for n in names for p in leaves(weights[n])])
+    flat, k = {}, 0
+    for name in names:
+        n = len(leaves(weights[name]))
+        flat[name] = torch.cat([g.detach().float().cpu().reshape(-1) for g in grads[k:k + n]])
+        k += n
+    return float(loss.detach()), flat, probe
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    """In fp64: fp32 sums over millions of entries may leave [-1, 1]."""
+    return float(torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=0))
+
+
+def _trunk_grads(params, device: str, dtype):
+    """The training trunk's gradient (its parameters and its input) for a
+    fixed seeded input and cotangent at pf's bucket, flattened, on the CPU."""
+    from dmpfold2_tpu_torch.models.trunk import trunk_apply
+    from dmpfold2_tpu_torch.train.step import leaves, trainable
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(1, L_PAD, L_PAD, GEMM_K_IN, generator=gen).to(device).requires_grad_()
+    cot = torch.randn(1, L_PAD, L_PAD, 2, generator=gen).to(device)
+    row = (torch.arange(L_PAD) < NRES).float()
+    mask = (row[:, None] * row[None, :])[None, :, :, None].to(device)
+    weights = trainable(params["trunk"], device)
+    out = trunk_apply(weights, x, mask, compute_dtype=dtype, remat="save_conv")
+    grads = torch.autograd.grad((out * cot).sum(), [x] + leaves(weights))
+    return torch.cat([g.detach().float().cpu().reshape(-1) for g in grads])
+
+
+def _rotation_angle_deg(r1: torch.Tensor, r2: torch.Tensor) -> float:
+    """The angle of the rotation r1 r2^T, in degrees."""
+    c = ((torch.trace(r1 @ r2.T) - 1.0) / 2.0).clamp(-1.0, 1.0)
+    return float(torch.rad2deg(torch.arccos(c)))
+
+
+PROBE_STAGES = ("dm", "mds", "raw_ca", "refined_ca", "pred_atoms")
+
+
+def phase_train_cpu(params, data_dir: str) -> None:
+    """The training step on the card against the CPU (plain versions), from
+    the same weights, on "pf" at nloops 0, without dropout or teacher
+    forcing, for each case of TRAIN_CPU_CASES; then refinement's backward and
+    the bf16 training trunk's backward alone.
+
+    The loss is held in every case, the whole step's gradients per top-level
+    parameter group (TRAIN_GRAD_COS) in the random model's fp32 step without
+    refinement. The other cases are recorded with where their gradients part
+    (_conditioning_probe: each stage's card-vs-CPU output difference and
+    gradient cosine) and the geometric tail's gradient (refinement and
+    backbone completion) on the card's CA trace, card vs CPU and CPU fp32 vs
+    CPU fp64 (_geometry_witness). Refinement's backward is held on a
+    protein-like trace (the "pf" target's CA, a 3.8 A walk) with a seeded
+    cotangent, card vs CPU, to TRAIN_GRAD_COS. The bf16 training trunk's
+    backward for a fixed input and cotangent: the card's gradient at least as
+    close to the CPU's as the CPU's bf16 gradient is to its fp32 one.
+    """
+    batch = _load_batch(data_dir, "pf")
+    rows, failed = [], []
+    for model, precision, refine_steps in TRAIN_CPU_CASES:
+        scale = HEAD_SCALE if model == "spread" else 1.0
+        t0 = time.perf_counter()
+        l_gpu, g_gpu, s_gpu = _step_grads(params, batch, "cuda", precision, refine_steps, scale)
+        t1 = time.perf_counter()
+        l_cpu, g_cpu, s_cpu = _step_grads(params, batch, "cpu", precision, refine_steps, scale)
+        cos = {k: _cosine(g_gpu[k], g_cpu[k]) for k in g_gpu}
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        stages = {k: {"rel_diff": float((s_gpu[k] - s_cpu[k]).abs().max() / s_cpu[k].abs().max()),
+                      "grad_cosine": _cosine(s_gpu["grad_" + k], s_cpu["grad_" + k])}
+                  for k in PROBE_STAGES}
+        # the CPU's cotangent on the valid atoms, zero on the padding
+        nres, l_pad = int(batch.nres[0]), batch.alnmat.shape[2]
+        cot = torch.zeros(l_pad, 5, 3, dtype=torch.float64)
+        cot[:nres] = s_cpu["grad_pred_atoms"].reshape(nres, 5, 3)
+        row = {"model": model, "precision": precision, "refine_steps": refine_steps,
+               "head_scale": scale, "loss_cuda": l_gpu, "loss_cpu": l_cpu,
+               "loss_rel_diff": rel, "loss_rtol": TRAIN_LOSS_RTOL[precision],
+               "grad_cosine": cos, "stages": stages,
+               "superposition": {"singular_values_cuda": s_gpu["singular_values"],
+                                 "singular_values_cpu": s_cpu["singular_values"],
+                                 "pred_radius_cuda": s_gpu["radius"],
+                                 "rotation_angle_deg": _rotation_angle_deg(s_gpu["rot"],
+                                                                           s_cpu["rot"])},
+               "geometry_on_card_trace": _geometry_witness(s_gpu["raw_ca_full"], cot,
+                                                           refine_steps, nres),
+               "cuda_s": t1 - t0, "cpu_s": time.perf_counter() - t1}
+        tag = f"{model} {precision} refine {refine_steps}"
+        failed += [] if rel <= TRAIN_LOSS_RTOL[precision] else [f"{tag} loss"]
+        if (model, precision, refine_steps) == TRAIN_HELD_CASE:
+            row["grad_cosine_min"] = TRAIN_GRAD_COS
+            failed += [f"{tag} {k}" for k, c in cos.items() if not c >= TRAIN_GRAD_COS]
+        rows.append(row)
+    gen = torch.Generator().manual_seed(4)
+    ca = torch.from_numpy(batch.targets[0, :, 1]).double()
+    cot = torch.randn(ca.shape[0], 5, 3, generator=gen, dtype=torch.float64)
+    cot[int(batch.nres[0]):] = 0.0
+    refine_row = {"refine_steps": TRAIN_CPU_REFINE, "trace": "pf target CA",
+                  **_geometry_witness(ca, cot, TRAIN_CPU_REFINE, int(batch.nres[0])),
+                  "min": TRAIN_GRAD_COS}
+    if not refine_row["card_vs_cpu"] >= TRAIN_GRAD_COS:
+        failed.append("refinement backward on a protein-like trace")
+    t0 = time.perf_counter()
+    card16 = _trunk_grads(params, "cuda", torch.bfloat16)
+    cpu16 = _trunk_grads(params, "cpu", torch.bfloat16)
+    cpu32 = _trunk_grads(params, "cpu", torch.float32)
+    trunk_row = {"card_bf16_vs_cpu_bf16": _cosine(card16, cpu16),
+                 "cpu_bf16_vs_cpu_fp32": _cosine(cpu16, cpu32),
+                 "seconds": time.perf_counter() - t0}
+    if not trunk_row["card_bf16_vs_cpu_bf16"] >= trunk_row["cpu_bf16_vs_cpu_fp32"]:
+        failed.append("bf16 trunk gradient")
+    emit({"phase": "train", "part": "cpu", "target": "pf", "nloops": 0, "cases": rows,
+          "refine_grad_cosine": refine_row, "trunk_grad_cosine": trunk_row})
+    if failed:
+        raise AssertionError(f"training step, card vs CPU: {failed}")
+
+
 def main() -> None:
     # fail before printing anything without a card or without the package
     if not torch.cuda.is_available():
@@ -641,9 +1228,16 @@ def main() -> None:
     capture = phase_cpu_bf16(params)
     phase_trunk(capture)
     phase_cpu(params)
+    with tempfile.TemporaryDirectory() as data_dir:
+        _write_train_data(data_dir, np.random.default_rng(1))
+        launches["train"] = {"conv5x5_maxout_diff": phase_train(params, data_dir)}
+        phase_train_cpu(params, data_dir)
     for name, row in rows.items():
-        # each kernel's count from the fold of the engine whose path it carries
-        engine = "bf16" if name in ("conv5x5_maxout", "gemm_maxout") else "fp32"
+        # each kernel's count from the run whose path it carries: the fp32
+        # fold (vgru, rgru, refine), the bf16 fold (the two trunk kernels),
+        # the training micro-steps (the argmax mode and its backward)
+        engine = {"conv5x5_maxout": "bf16", "gemm_maxout": "bf16",
+                  "conv5x5_maxout_diff": "train"}.get(name, "fp32")
         row["launches"] = launches[engine][name]
         row["kernel_ms"] = row["ms"]
     print(info["nvidia_smi"], flush=True)

@@ -1,8 +1,9 @@
-"""Fold configuration: one dataclass mapped 1:1 onto the CLI flags.
+"""Configuration: the fold's dataclass, mapped 1:1 onto the CLI flags, and the
+training constants.
 
-Counterpart of ``dmpfold2_tpu/config.py:FoldConfig``. The port runs two
-precisions, ``fp32`` and ``bf16``; ``fp32_strict`` is not ported yet
-(ROADMAP.md, queue 1).
+Counterpart of ``dmpfold2_tpu/config.py:FoldConfig`` and ``TrainConfig``.
+The port runs two precisions, ``fp32`` and ``bf16``; ``fp32_strict`` is not
+ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -51,3 +52,19 @@ class FoldConfig:
         if getattr(args, "precision", None) is not None:
             cfg.precision = args.precision
         return cfg
+
+
+@dataclass
+class TrainConfig:
+    """Training constants (reference train.py:21-33), as the JAX package's
+    ``config.TrainConfig``."""
+
+    batch_size: int = 32             # gradient-accumulation span, in samples
+    max_aln_size: int = 300 * 1000   # MSA area budget
+    crop_len: int = 350
+    max_iterations: int = 3          # max recycling loops
+    restart: bool = True
+    refine_steps: int = 100
+    micro_batch: int = 1
+    learning_rate_restart: float = 1e-4
+    learning_rate_scratch: float = 3e-4

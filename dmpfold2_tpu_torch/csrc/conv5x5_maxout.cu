@@ -1,12 +1,18 @@
 // Trunk block conv: same-padded 5x5 conv + bias + maxout, with the masked
-// InstanceNorm partial sums of the result (stats mode).
+// InstanceNorm partial sums of the result (stats mode) or the index of the
+// winning pool slice (argmax mode).
 //
 // Replaces the TPU kernel dmpfold2_tpu/kernels/conv_block.py:conv5x5_maxout
-// (its _kernel, with_stats=True, as conv5x5_maxout_stats calls it). Per
-// target: out[i, j, g] = max_p (b[c] + sum_{dy,dx,ci} x[i+dy-2, j+dx-2, ci] *
-// w[dy, dx, ci, c]) with c = g * 4 + p, x zero outside [0, L)^2; bf16 operands,
-// fp32 accumulation, bf16 output. Also the fp32 sum and sum of squares of the
-// pre-rounding maxout over [0, nres)^2, per target and channel.
+// in its two modes: with_stats=True, as conv5x5_maxout_stats calls it (the
+// bf16 engine), and with_argmax=True, as the forward of conv5x5_maxout_diff
+// calls it (bf16 training). Per target: out[i, j, g] = max_p (b[c] +
+// sum_{dy,dx,ci} x[i+dy-2, j+dx-2, ci] * w[dy, dx, ci, c]) with c = g * 4 + p,
+// x zero outside [0, L)^2; bf16 operands, fp32 accumulation, bf16 output.
+// Stats mode adds the fp32 sum and sum of squares of the pre-rounding maxout
+// over [0, nres)^2, per target and channel; argmax mode adds, per output, the
+// int8 slice p that won (the first on a tie), which the backward routes the
+// cotangent by. The two modes share everything up to the epilogue, so their
+// outputs are the same bits.
 //
 // What bounds it on an H100: operations. An implicit GEMM with M = L^2
 // pixels, K = 25 * 128 = 3200 and N = 512: at PF10963's 88 x 88 that is
@@ -26,8 +32,9 @@
 // pixels each) by 2 along N (64 columns). An A fragment is 16 consecutive
 // pixels of one patch row shifted by (dy, dx), read straight from the patch.
 // The epilogue (maxout_tile.cuh) adds the bias, takes the max over the pool
-// slices, writes bf16 and per-block partial sums; the wrapper reduces the
-// partials per target. wgmma, TMA and a persistent schedule are later work.
+// slices, writes bf16 and per-block partial sums (the wrapper reduces them
+// per target) or the int8 index. wgmma, TMA and a persistent schedule are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,11 +68,13 @@ constexpr int kSmem =
 static_assert(kTileRows * kTileCols == kTileM, "tile");
 static_assert(kCin % kKChunk == 0, "K chunks must not cross taps");
 
-__global__ void __launch_bounds__(kThreads, 2) conv5x5_maxout_kernel(
+// One block's tile; kArgmax selects the epilogue (index, or partial sums).
+template <bool kArgmax>
+__device__ __forceinline__ void conv5x5_maxout_tile(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const float* __restrict__ bias, const int* __restrict__ nres,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int L, int c_out,
-    int tiles_c) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
+    signed char* __restrict__ index, int L, int c_out, int tiles_c) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* patch = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(smem + kPatchBytes);
@@ -154,10 +163,46 @@ __global__ void __launch_bounds__(kThreads, 2) conv5x5_maxout_kernel(
     j = c0 + r % kTileCols;
     if (j >= L) i = L;
   };
-  maxout_tile::epilogue<kPool>(accs, kAccLd, bias + n0, pixel, L, nres[b],
-                               out + (size_t)b * L * L * c_groups, c_groups,
-                               n0 / kPool, partial + ((size_t)b * tiles + mt) * 2 * c_groups,
-                               red);
+  if constexpr (kArgmax) {
+    const size_t o = (size_t)b * L * L * c_groups;
+    maxout_tile::epilogue<kPool, true>(accs, kAccLd, bias + n0, pixel, L, L, out + o, c_groups,
+                                       n0 / kPool, nullptr, nullptr, index + o);
+  } else {
+    maxout_tile::epilogue<kPool>(accs, kAccLd, bias + n0, pixel, L, nres[b],
+                                 out + (size_t)b * L * L * c_groups, c_groups, n0 / kPool,
+                                 partial + ((size_t)b * tiles + mt) * 2 * c_groups, red);
+  }
+}
+
+// The two modes as two kernels, so that a profile tells them apart by name.
+__global__ void __launch_bounds__(kThreads, 2) conv5x5_maxout_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const float* __restrict__ bias, const int* __restrict__ nres,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int L, int c_out,
+    int tiles_c) {
+  conv5x5_maxout_tile<false>(x, w, bias, nres, out, partial, nullptr, L, c_out, tiles_c);
+}
+
+__global__ void __launch_bounds__(kThreads, 2) conv5x5_maxout_argmax_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+    signed char* __restrict__ index, int L, int c_out, int tiles_c) {
+  conv5x5_maxout_tile<true>(x, w, bias, nullptr, out, nullptr, index, L, c_out, tiles_c);
+}
+
+// The launch shared by both entry points: grid, shared memory, error code.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int batch, int L, int c_in, int c_out, void* stream, Args... args) {
+  if (batch <= 0 || L <= 0 || c_in != kCin || c_out <= 0 || c_out % kN != 0 ||
+      batch > 65535 || c_out / kN > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_r = (L + kTileRows - 1) / kTileRows, tiles_c = (L + kTileCols - 1) / kTileCols;
+  const dim3 grid(tiles_r * tiles_c, c_out / kN, batch);
+  kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(args..., L, c_out, tiles_c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -170,16 +215,17 @@ __global__ void __launch_bounds__(kThreads, 2) conv5x5_maxout_kernel(
 extern "C" int conv5x5_maxout_stats(const void* x, const void* w, const float* bias,
                                     const int* nres, void* out, float* partial, int batch, int L,
                                     int c_in, int c_out, void* stream) {
-  if (batch <= 0 || L <= 0 || c_in != kCin || c_out <= 0 || c_out % kN != 0 ||
-      batch > 65535 || c_out / kN > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(conv5x5_maxout_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_r = (L + kTileRows - 1) / kTileRows, tiles_c = (L + kTileCols - 1) / kTileCols;
-  const dim3 grid(tiles_r * tiles_c, c_out / kN, batch);
-  conv5x5_maxout_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), bias, nres,
-      static_cast<__nv_bfloat16*>(out), partial, L, c_out, tiles_c);
-  return (int)cudaGetLastError();
+  return launch(conv5x5_maxout_kernel, batch, L, c_in, c_out, stream,
+                static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+                bias, nres, static_cast<__nv_bfloat16*>(out), partial);
+}
+
+// Argmax mode: x, w, bias, out as above; index: (batch, L, L, c_out / 4) int8,
+// the slice p in 0..3 whose value out holds (the first on a tie).
+extern "C" int conv5x5_maxout_argmax(const void* x, const void* w, const float* bias, void* out,
+                                     void* index, int batch, int L, int c_in, int c_out,
+                                     void* stream) {
+  return launch(conv5x5_maxout_argmax_kernel, batch, L, c_in, c_out, stream,
+                static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+                bias, static_cast<__nv_bfloat16*>(out), static_cast<signed char*>(index));
 }

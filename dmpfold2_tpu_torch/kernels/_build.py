@@ -25,13 +25,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of each library's entry point: (name, argtypes)
+# C signatures of each library's entry points: {name: argtypes}
 SIGNATURES = {
-    "vgru": ("vgru_final_cols", [_P, _P, _I, _I, _I] + [_P] * 9 + [_P]),
-    "rgru": ("rgru_seq", [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
-    "refine": ("refine_coords", [_P, _P, _I, _I, _I, _P]),
-    "conv5x5_maxout": ("conv5x5_maxout_stats", [_P] * 6 + [_I] * 4 + [_P]),
-    "gemm_maxout": ("gemm_maxout_stats", [_P] * 6 + [_I] * 4 + [_P]),
+    "vgru": {"vgru_final_cols": [_P, _P, _I, _I, _I] + [_P] * 9 + [_P]},
+    "rgru": {"rgru_seq": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P]},
+    "refine": {"refine_coords": [_P, _P, _I, _I, _I, _P]},
+    "conv5x5_maxout": {"conv5x5_maxout_stats": [_P] * 6 + [_I] * 4 + [_P],
+                       "conv5x5_maxout_argmax": [_P] * 5 + [_I] * 4 + [_P]},
+    "gemm_maxout": {"gemm_maxout_stats": [_P] * 6 + [_I] * 4 + [_P]},
 }
 
 _lock = threading.Lock()
@@ -102,8 +103,9 @@ def build(names=tuple(SIGNATURES)) -> dict[str, str]:
     return logs
 
 
-def load(name: str):
-    """The C entry point of kernel ``name``, building its library if needed."""
+def load(name: str, entry: str | None = None):
+    """The C entry point ``entry`` of library ``name`` (its only one when
+    ``entry`` is None), building the library if needed."""
     with _lock:
         lib = _loaded.get(name)
     if lib is None:
@@ -113,8 +115,10 @@ def load(name: str):
             if lib is None:
                 lib = ctypes.CDLL(str(_lib_path(name)))
                 _loaded[name] = lib
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
+    entries = SIGNATURES[name]
+    if entry is None:
+        (entry,) = entries
+    fn = getattr(lib, entry)
+    fn.argtypes = entries[entry]
     fn.restype = ctypes.c_int
     return fn

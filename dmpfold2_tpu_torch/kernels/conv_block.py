@@ -1,25 +1,30 @@
 """The trunk's maxout convolutions in bf16: CUDA kernel wrappers, their plain
-versions and the weight packing they read.
+versions, the weight packing they read and the differentiable block conv.
 
-Replaces two TPU kernels of ``dmpfold2_tpu/kernels/conv_block.py`` in stats
-mode, the mode the bf16 engine runs:
+Replaces three TPU kernels of ``dmpfold2_tpu/kernels/conv_block.py``:
 
   * ``conv5x5_maxout`` (``csrc/conv5x5_maxout.cu``): each residual block's
-    same-padded 5x5 conv 128 -> 512 + bias + maxout over 4 slices;
+    same-padded 5x5 conv 128 -> 512 + bias + maxout over 4 slices, in stats
+    mode (the bf16 engine, :func:`conv5x5_maxout_stats`) and in argmax mode
+    (bf16 training, :func:`conv5x5_maxout_argmax`);
   * ``gemm_maxout`` (``csrc/gemm_maxout.cu``): the input layer, a 1x1 conv
-    (a GEMM) 955 -> 384 + bias + maxout over 3 slices.
+    (a GEMM) 955 -> 384 + bias + maxout over 3 slices, stats mode;
+  * ``conv5x5_maxout_diff``, the custom VJP around the argmax mode:
+    :class:`Conv5x5MaxoutDiff`.
 
-Both take bf16 operands with fp32 accumulation and return the bf16 maxout
-(channel c = g * pool + p pooled into g; the first maximum wins, which does
-not change the value) with the fp32 masked sum and sum of squares of the
-pre-rounding maxout over [0, nres)^2 per target and channel. Maps are NHWC,
-as the JAX package keeps them at this boundary.
+The kernels take bf16 operands with fp32 accumulation and return the bf16
+maxout (channel c = g * pool + p pooled into g; the first maximum wins, which
+does not change the value) with, in stats mode, the fp32 masked sum and sum
+of squares of the pre-rounding maxout over [0, nres)^2 per target and
+channel, or, in argmax mode, the int8 index of the winning slice. Maps are
+NHWC, as the JAX package keeps them at this boundary.
 
 On a CUDA tensor a wrapper launches its kernel or raises; it never reaches
 cuDNN, cuBLAS or the plain version. On a CPU tensor it runs the plain
-version, which computes in fp32 on the same bf16 operands. Weights are packed
-once (:func:`pack_conv5x5_weights`, :func:`pack_gemm_weights`), when the
-engine puts the parameters on the device, never per call.
+version, which computes in fp32 on the same bf16 operands. The engine packs
+weights once (:func:`pack_conv5x5_weights`, :func:`pack_gemm_weights`), when
+it puts the parameters on the device; training packs the live weights on
+every forward of :class:`Conv5x5MaxoutDiff`.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ GEMM_N_TILE = 96      # GEMM output columns per block: 32 whole groups of 3
 GEMM_K_ALIGN = 64     # the GEMM's K step; K is padded to a multiple upstream
 GEMM_TILE_M = 128     # GEMM pixels per block
 
-conv_launches = 0  # conv5x5_maxout kernel launches since the last reset
+conv_launches = 0  # conv5x5_maxout kernel launches (stats mode) since the last reset
+conv_argmax_launches = 0  # conv5x5_maxout kernel launches in argmax mode
 gemm_launches = 0  # gemm_maxout kernel launches since the last reset
 
 
@@ -117,13 +123,14 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
                          f"{t.device}" + ("" if t.is_contiguous() else " (not contiguous)"))
 
 
-def _launch(lib: str, x, w_packed, b_packed, nres, tiles: int, pool: int, dim3: int):
+def _launch(lib: str, entry: str, x, w_packed, b_packed, nres, tiles: int, pool: int,
+            dim3: int):
     """Allocate the output and the partials, launch, reduce the partials per target."""
     batch, l_rows = x.shape[:2]
     c_groups = w_packed.shape[1] // pool
     out = torch.empty((batch, l_rows, l_rows, c_groups), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((batch, tiles, 2, c_groups), dtype=torch.float32, device=x.device)
-    fn = _build.load(lib)
+    fn = _build.load(lib, entry)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(), nres.data_ptr(),
@@ -132,6 +139,23 @@ def _launch(lib: str, x, w_packed, b_packed, nres, tiles: int, pool: int, dim3: 
     torch.cuda.check_error(err)
     sums = partial.sum(dim=1)  # fixed order: the same bits on every run
     return out, sums[:, 0], sums[:, 1]
+
+
+def _check_conv(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor) -> None:
+    """What the conv kernel takes, in either mode; raises otherwise."""
+    if x.dim() != 4 or x.shape[1] != x.shape[2] or x.shape[3] != CONV_C_IN:
+        raise ValueError(f"conv5x5_maxout: x must be (B, L, L, {CONV_C_IN}); got "
+                         f"{tuple(x.shape)}")
+    batch = x.shape[0]
+    c_out = w_packed.shape[-1]
+    if c_out <= 0 or c_out % CONV_N_TILE or batch > 65535:
+        raise ValueError(f"conv5x5_maxout: c_out must be a multiple of {CONV_N_TILE} and "
+                         f"B <= 65535; got c_out {c_out}, B {batch}")
+    dev = x.device
+    _check("conv5x5_maxout: x", x, torch.bfloat16, x.shape, dev)
+    _check("conv5x5_maxout: w_packed", w_packed, torch.bfloat16,
+           (KSIZE * KSIZE * CONV_C_IN, c_out), dev)
+    _check("conv5x5_maxout: b_packed", b_packed, torch.float32, (c_out,), dev)
 
 
 def conv5x5_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
@@ -145,24 +169,136 @@ def conv5x5_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torc
     global conv_launches
     if x.device.type == "cpu":
         return conv5x5_maxout_stats_plain(x, w_packed, b_packed, nres)
-    if x.dim() != 4 or x.shape[1] != x.shape[2] or x.shape[3] != CONV_C_IN:
-        raise ValueError(f"conv5x5_maxout: x must be (B, L, L, {CONV_C_IN}); got "
-                         f"{tuple(x.shape)}")
+    _check_conv(x, w_packed, b_packed)
     batch, l_rows = x.shape[:2]
-    c_out = w_packed.shape[-1]
-    if c_out <= 0 or c_out % CONV_N_TILE or batch > 65535:
-        raise ValueError(f"conv5x5_maxout: c_out must be a multiple of {CONV_N_TILE} and "
-                         f"B <= 65535; got c_out {c_out}, B {batch}")
-    dev = x.device
-    _check("conv5x5_maxout: x", x, torch.bfloat16, x.shape, dev)
-    _check("conv5x5_maxout: w_packed", w_packed, torch.bfloat16,
-           (KSIZE * KSIZE * CONV_C_IN, c_out), dev)
-    _check("conv5x5_maxout: b_packed", b_packed, torch.float32, (c_out,), dev)
-    _check("conv5x5_maxout: nres", nres, torch.int32, (batch,), dev)
+    _check("conv5x5_maxout: nres", nres, torch.int32, (batch,), x.device)
     tiles = -(-l_rows // CONV_TILE[0]) * -(-l_rows // CONV_TILE[1])
-    result = _launch("conv5x5_maxout", x, w_packed, b_packed, nres, tiles, CONV_POOL, CONV_C_IN)
+    result = _launch("conv5x5_maxout", "conv5x5_maxout_stats", x, w_packed, b_packed, nres,
+                     tiles, CONV_POOL, CONV_C_IN)
     conv_launches += 1
     return result
+
+
+def conv5x5_maxout_argmax_plain(x: torch.Tensor, w_packed: torch.Tensor,
+                                b_packed: torch.Tensor):
+    """Plain version of :func:`conv5x5_maxout_argmax`: ``F.conv2d`` in fp32 on
+    the bf16-rounded operands, bias, maxout with the index of the winning
+    slice (``torch.max`` returns the first on a tie)."""
+    batch, l_rows, l_cols, c_in = x.shape
+    c_out = w_packed.shape[1]
+    w = w_packed.to(torch.bfloat16).float().view(KSIZE, KSIZE, c_in, c_out).permute(3, 2, 0, 1)
+    xf = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
+    y = F.conv2d(xf, w, b_packed.float(), padding=KSIZE // 2)
+    y = y.permute(0, 2, 3, 1).reshape(batch, l_rows, l_cols, c_out // CONV_POOL, CONV_POOL)
+    val, idx = y.max(dim=-1)
+    return val.to(torch.bfloat16), idx.to(torch.int8)
+
+
+def conv5x5_maxout_argmax(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor):
+    """Fused 5x5 conv + bias + maxout(4) with the winning slice, NHWC (the
+    kernel's argmax mode).
+
+    x (B, L, L, 128) bf16; w_packed (3200, c_out) bf16 and b_packed (c_out,)
+    fp32 from :func:`pack_conv5x5_weights` -> (out (B, L, L, c_out / 4) bf16,
+    index (B, L, L, c_out / 4) int8 in 0..3: ``out[..., g]`` is slice
+    ``index[..., g]`` of channels g * 4 .. g * 4 + 3, the first on a tie).
+    ``out`` is the same bits as :func:`conv5x5_maxout_stats` gives.
+    """
+    global conv_argmax_launches
+    if x.device.type == "cpu":
+        return conv5x5_maxout_argmax_plain(x, w_packed, b_packed)
+    _check_conv(x, w_packed, b_packed)
+    batch, l_rows = x.shape[:2]
+    c_out = w_packed.shape[1]
+    shape = (batch, l_rows, l_rows, c_out // CONV_POOL)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    index = torch.empty(shape, dtype=torch.int8, device=x.device)
+    fn = _build.load("conv5x5_maxout", "conv5x5_maxout_argmax")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(), out.data_ptr(),
+                 index.data_ptr(), batch, l_rows, CONV_C_IN, c_out, stream)
+    torch.cuda.check_error(err)
+    conv_argmax_launches += 1
+    return out, index
+
+
+def _mm_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 (M, K) x bf16 (K, N) -> fp32 (M, N), products and sums in fp32.
+
+    On CUDA this is cuBLAS's bf16 GEMM with an fp32 output (``aten::mm.dtype``);
+    that operator has no CPU kernel, so on the CPU the same product is taken in
+    fp32 on the exactly converted operands."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class Conv5x5MaxoutDiff(torch.autograd.Function):
+    """Differentiable conv5x5 + bias + maxout(4) in bf16, the counterpart of
+    ``dmpfold2_tpu/kernels/conv_block.py:conv5x5_maxout_diff`` (:646).
+
+    x (B, L, L, 128) NHWC bf16, w (c_out, 128, 5, 5) OIHW fp32, b (c_out,)
+    fp32 -> (B, L, L, c_out / 4) bf16. The forward packs the live weights and
+    runs the kernel's argmax mode, saving the int8 index; the backward
+    (``_diff_bwd``, :682-737) routes the cotangent by it:
+
+      * the cotangent scattered to its winning slice, one 512-wide map G
+        (c = g * 4 + p), fp32 for db (the sum of the unrounded cotangent),
+        then bf16 for the two products;
+      * dx = the transposed conv of G with w: one cuDNN bf16 convolution that
+        sums all four slices' terms in fp32 and rounds once to x's dtype;
+      * dw = 25 shifted-view GEMMs, x's (128, B L L) view at tap (dy, dx)
+        times G, each with an fp32 output.
+
+    The JAX backward takes the four slices one at a time (``gp = g [idx ==
+    p]``) to keep the 512-wide cotangent out of TPU memory; here G is 2 bytes
+    x 512 per pixel (127 MB at B 1, L 352), and the single dx convolution
+    then accumulates in fp32 across the slices without a bf16 partial sum.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        w_packed, b_packed = pack_conv5x5_weights(w.detach(), b.detach())
+        out, index = conv5x5_maxout_argmax(x.detach().contiguous(), w_packed, b_packed)
+        ctx.save_for_backward(x, w, b, index)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, index = ctx.saved_tensors
+        batch, l_rows, l_cols, c_groups = g.shape
+        c_out, c_in = w.shape[:2]
+        scat = torch.zeros((batch, l_rows, l_cols, c_groups, CONV_POOL), dtype=torch.float32,
+                           device=g.device)
+        scat.scatter_(-1, index.long().unsqueeze(-1), g.float().unsqueeze(-1))
+        db = scat.sum(dim=(0, 1, 2)).reshape(c_out)
+        cot = scat.reshape(batch, l_rows, l_cols, c_out).to(torch.bfloat16)
+        del scat
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = F.conv_transpose2d(cot.permute(0, 3, 1, 2), w.to(torch.bfloat16),
+                                    padding=KSIZE // 2)
+            dx = dx.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+        if ctx.needs_input_grad[1]:
+            pad = KSIZE // 2
+            xp = F.pad(x.to(torch.bfloat16), (0, 0, pad, pad, pad, pad))
+            cot2 = cot.reshape(-1, c_out)
+            taps = [_mm_fp32(xp[:, dy:dy + l_rows, dx_:dx_ + l_cols].reshape(-1, c_in).T, cot2)
+                    for dy in range(KSIZE) for dx_ in range(KSIZE)]
+            dw = torch.stack(taps).view(KSIZE, KSIZE, c_in, c_out).permute(3, 2, 0, 1)
+            dw = dw.to(w.dtype).contiguous()
+        return dx, dw, db.to(b.dtype)
+
+
+def conv5x5_maxout_diff(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The trunk block conv of bf16 training: :class:`Conv5x5MaxoutDiff` when a
+    gradient is wanted; otherwise (no_grad, an eval step) the same kernel
+    launch without keeping the index, so the output is the same bits."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
+        return Conv5x5MaxoutDiff.apply(x, w, b)
+    w_packed, b_packed = pack_conv5x5_weights(w, b)
+    return conv5x5_maxout_argmax(x.contiguous(), w_packed, b_packed)[0]
 
 
 def gemm_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
@@ -191,7 +327,8 @@ def gemm_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.T
     _check("gemm_maxout: b_packed", b_packed, torch.float32, (c_out,), dev)
     _check("gemm_maxout: nres", nres, torch.int32, (batch,), dev)
     tiles = -(-(l_rows * l_rows) // GEMM_TILE_M)
-    result = _launch("gemm_maxout", x, w_packed, b_packed, nres, tiles, GEMM_POOL, k_pad)
+    result = _launch("gemm_maxout", "gemm_maxout_stats", x, w_packed, b_packed, nres, tiles,
+                     GEMM_POOL, k_pad)
     gemm_launches += 1
     return result
 

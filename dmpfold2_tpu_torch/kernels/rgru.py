@@ -61,19 +61,11 @@ def gru_seq(wh: torch.Tensor, bh: torch.Tensor, xproj: torch.Tensor,
 
 
 def bigru_stack(layers, x: torch.Tensor, valid_len) -> torch.Tensor:
-    """Multi-layer biGRU over residues (inference): (T, B, C) -> (T, B, 2H).
+    """Multi-layer biGRU over residues (inference): (T, B, C) -> (T, B, 2H),
+    :func:`models.gru.bigru_stack` with this kernel's recurrence.
 
     ``valid_len``: scalar or (B,) true lengths.
     """
-    seq_len, batch, _ = x.shape
     valid = torch.as_tensor(valid_len, dtype=torch.int32, device=x.device)
-    valid = valid.expand(batch).contiguous()
-    out = x
-    for layer in layers:
-        passes = []
-        for direction, reverse in (("fwd", False), ("bwd", True)):
-            p = layer[direction]
-            xproj = torch.matmul(out, p["wi"]) + p["bi"]
-            passes.append(gru_seq(p["wh"], p["bh"], xproj, valid, reverse=reverse))
-        out = torch.cat(passes, dim=-1)
-    return out
+    valid = valid.expand(x.shape[1]).contiguous()
+    return gru.bigru_stack(layers, x, valid, scan=gru_seq)

@@ -41,12 +41,16 @@ def mds_coords(dm: torch.Tensor, nres: int, n_dims: int = 8) -> torch.Tensor:
     pad_diag = torch.where(col, torch.zeros((), device=dm.device),
                            -(1e6 + torch.arange(l_pad, dtype=dm.dtype, device=dm.device)))
     gram = gram + torch.diag(pad_diag)
-    w, v = torch.linalg.eigh(gram)
+    # a non-finite map (a training step on NaN inputs, which the step's guard
+    # then skips) gives NaN coordinates, as XLA's eigh does; torch's eigh
+    # would raise on the CPU instead, so it is handed zeros
+    finite = torch.isfinite(gram).all()
+    w, v = torch.linalg.eigh(torch.where(finite, gram, 0.0))
     w8 = w[-n_dims:].clamp(min=1e-8)
     v8 = v[:, -n_dims:]
     comp = v8.gather(0, v8.abs().argmax(dim=0, keepdim=True))[0]
     v8 = v8 * torch.where(comp < 0, -1.0, 1.0)
-    return v8 * torch.sqrt(w8)
+    return torch.where(finite, v8 * torch.sqrt(w8), float("nan"))
 
 
 def refine_step(coords: torch.Tensor, valid: torch.Tensor, adj_valid: torch.Tensor) -> torch.Tensor:

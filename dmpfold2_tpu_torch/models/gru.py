@@ -8,10 +8,13 @@ Masking: sequences are right-padded. A forward scan freezes the state once
 ``t >= valid_len``; a reverse scan holds it at zero there, so the first valid
 step sees a fresh zero state as an unpadded reverse scan would.
 
-These are the plain versions. The model reaches the hand-written kernels
-through ``kernels/rgru.py`` (which also holds the biGRU stack, as the JAX
-package's ``kernels/rgru.py:bigru_stack_pallas`` does) and
-``kernels/vgru.py``; those run the functions here only for CPU tensors.
+These are the plain versions. The fold reaches the hand-written kernels
+through ``kernels/rgru.py`` (whose biGRU stack, as the JAX package's
+``kernels/rgru.py:bigru_stack_pallas``, is :func:`bigru_stack` with the
+kernel's recurrence) and ``kernels/vgru.py``; those run the functions here
+only for CPU tensors.
+Training runs the functions here on every device, differentiated by autograd,
+as the JAX training path runs its scans (the kernels have no backward).
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.dropout import dropout, fold_in
 
 
 def gru_layer_params(gen: torch.Generator, input_size: int, hidden_size: int):
@@ -76,33 +82,69 @@ def gru_scan_projected(wh: torch.Tensor, bh: torch.Tensor, xproj: torch.Tensor,
     hidden = wh.shape[0]
     keep_all = _valid_vector(valid_len, batch, xproj.device)[:, None]
     h = xproj.new_zeros((batch, hidden))
-    out = xproj.new_empty((seq_len, batch, hidden))
+    out = [h] * seq_len
     for t in (reversed(range(seq_len)) if reverse else range(seq_len)):
         h_new = gates(xproj[t], h @ wh + bh, h)
         keep = t < keep_all
         h = torch.where(keep, h_new, torch.zeros_like(h_new) if reverse else h)
         out[t] = h
+    return torch.stack(out)
+
+
+def bigru_stack(layers, x: torch.Tensor, valid_len, *, dropout_rate: float = 0.0,
+                seed: int | None = None, scan=gru_scan_projected) -> torch.Tensor:
+    """Multi-layer biGRU (T, B, C) -> (T, B, 2H), the JAX ``gru.bigru_stack``.
+
+    ``scan``: the recurrence of one layer-direction, with
+    :func:`gru_scan_projected`'s signature; this differentiable one by
+    default (training), the CUDA kernel's wrapper for the fold
+    (``kernels/rgru.py``). With a ``seed``, dropout of ``dropout_rate``
+    follows every layer but the last (torch's semantics), its mask drawn from
+    ``fold_in(seed, layer)``.
+    """
+    out = x
+    for layer_idx, layer in enumerate(layers):
+        passes = []
+        for direction, reverse in (("fwd", False), ("bwd", True)):
+            p = layer[direction]
+            xproj = torch.matmul(out, p["wi"]) + p["bi"]
+            passes.append(scan(p["wh"], p["bh"], xproj, valid_len, reverse=reverse))
+        out = torch.cat(passes, dim=-1)
+        if seed is not None and dropout_rate > 0.0 and layer_idx < len(layers) - 1:
+            out = dropout(out, dropout_rate, fold_in(seed, layer_idx))
     return out
 
 
-def unigru_stack_final(layers, x: torch.Tensor, valid_len) -> torch.Tensor:
+def unigru_stack_final(layers, x: torch.Tensor, valid_len, remat_chunk: int = 0) -> torch.Tensor:
     """Multi-layer unidirectional GRU returning the final state of the last
     layer: (T, B, C) -> (B, H). Each column freezes past its own length
     ``valid_len`` (scalar or (B,)).
 
     The vertical MSA reduction (reference network.py:224-225 takes
     ``vgru(x)[0][-1]``). Layer 0 projects one row per step, so no (T, B, 3H)
-    tensor is made.
+    tensor is made. ``remat_chunk`` (training, with autograd on): checkpoint
+    the rows in chunks of that many, so the backward keeps one chunk's
+    activations and the states at chunk boundaries, for one more forward of
+    each chunk (the JAX ``remat_chunk``).
     """
     seq_len, batch, _ = x.shape
     hidden = layers[0]["wh"].shape[0]
     valid = _valid_vector(valid_len, batch, x.device)[:, None]
-    hs = [x.new_zeros((batch, hidden)) for _ in layers]
-    for t in range(seq_len):
-        keep = t < valid
-        layer_in = x[t]
-        for i, p in enumerate(layers):
-            h_new = gates(layer_in @ p["wi"] + p["bi"], hs[i] @ p["wh"] + p["bh"], hs[i])
-            hs[i] = torch.where(keep, h_new, hs[i])
-            layer_in = hs[i]
-    return hs[-1]
+    hs = tuple(x.new_zeros((batch, hidden)) for _ in layers)
+
+    def rows(start: int, xc: torch.Tensor, *hs):
+        hs = list(hs)
+        for dt in range(xc.shape[0]):
+            keep = start + dt < valid
+            layer_in = xc[dt]
+            for i, p in enumerate(layers):
+                h_new = gates(layer_in @ p["wi"] + p["bi"], hs[i] @ p["wh"] + p["bh"], hs[i])
+                hs[i] = torch.where(keep, h_new, hs[i])
+                layer_in = hs[i]
+        return tuple(hs)
+
+    if remat_chunk and seq_len > remat_chunk and torch.is_grad_enabled():
+        for start in range(0, seq_len, remat_chunk):
+            hs = checkpoint(rows, start, x[start:start + remat_chunk], *hs, use_reentrant=False)
+        return hs[-1]
+    return rows(0, x, *hs)[-1]

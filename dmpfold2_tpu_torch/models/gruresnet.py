@@ -1,7 +1,7 @@
-"""GRUResNet: the folding network (MSA -> coordinates + confidence), inference.
+"""GRUResNet: the folding network (MSA -> coordinates + confidence).
 
-Counterpart of ``dmpfold2_tpu/models/gruresnet.py:init_params`` and
-``forward``:
+Counterpart of ``dmpfold2_tpu/models/gruresnet.py:init_params``, ``forward``
+(inference) and ``forward_batched`` (training, :func:`forward_batched`):
 
   MSA rows --[2-layer GRU over rows, final state]--> (L, 512)
   --[2-layer biGRU over residues]--> mat1d --outer product--> (L, L, 512)
@@ -27,16 +27,20 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import refine, rgru, vgru
+from ..ops.dropout import fold_in
 from ..utils.aln import NUM_CLASSES as NUM_AA_CLASSES  # 22
 from . import gru
-from .geometry import calpha_to_main_chain, mds_coords
+from .geometry import calpha_to_main_chain, mds_coords, refine_coords
 from ..features.dca import NUM_DCA_CHANNELS
 from .trunk import PackedTrunk, pack_bf16, trunk_apply, trunk_apply_bf16, trunk_params
 
 WIDTH = 512
 CWIDTH = 128
+GRU_DROPOUT = 0.1  # between the residue GRUs' layers, in training
 
 
 def init_params(seed: int = 0, width: int = WIDTH, cwidth: int = CWIDTH, num_blocks: int = 16):
@@ -163,3 +167,97 @@ def _bf16_trunk_pass(packed, pair: torch.Tensor, x2: torch.Tensor, pair_mask: to
         return trunk_apply_bf16(packed, resinp, mask)[0]
 
     return trunk_pass
+
+
+def forward_batched(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
+                    nloops: int, refine_steps: int, *, rngs: dict | None = None,
+                    remat=False, compute_dtype=torch.float32):
+    """Batched training forward, differentiable: (B, N, L) alignments ->
+    ((B, L, 5, 3) coords, (B, L) confidences).
+
+    Counterpart of the JAX ``gruresnet.forward_batched`` (:247-375) as the
+    training step runs it: the GRUs, MDS and refinement in fp32 plain
+    PyTorch, differentiated by autograd (the inference kernels have no
+    backward; the JAX training path runs its scans too), the trunk through
+    ``trunk.trunk_apply`` in ``compute_dtype``.
+
+    Args:
+      params: fp32 parameters (``init_params`` layout) on ``alnmat``'s device.
+      x2: (B, L, L, 443) pair features [DCA 442 | dmap seed 1].
+      nseqs, nres: per-target true sizes, sequences of ints.
+      nloops: recycles (an int: the loop is unrolled for the backward).
+      rngs: dropout seeds {"hgru", "init", "recycle"} (``ops.dropout``); None
+          turns dropout off. Recycle i uses ``fold_in(rngs["recycle"], i)``.
+      remat: the step's tier (``train/step.py:resolve_remat``): False, True or
+          "save_conv" for the trunk; "recycle" / "recycle_save_conv" also
+          checkpoint each trunk-and-coordinate pass (full-body or save_conv
+          block remat inside the replay).
+    """
+    batch, n_rows, l_pad = alnmat.shape
+    device = alnmat.device
+    nres_l, nseqs_l = [int(n) for n in nres], [int(n) for n in nseqs]
+    remat_recycle = remat in ("recycle", "recycle_save_conv")
+    if remat_recycle:
+        remat = "save_conv" if remat == "recycle_save_conv" else True
+    nres_t = torch.tensor(nres_l, dtype=torch.int32, device=device)
+    row_mask = (torch.arange(l_pad, device=device)[None, :] < nres_t[:, None]).float()  # (B, L)
+    pair_mask = row_mask[:, :, None] * row_mask[:, None, :]                           # (B, L, L)
+    nres_f = nres_t.float()
+    seed = (lambda name: None) if rngs is None else rngs.get
+
+    # vertical GRU over rows: columns = B * L residue positions, each frozen
+    # at its own target's depth; chunk-checkpointed when remat is on
+    x = F.one_hot(alnmat.long(), NUM_AA_CLASSES).float()                              # (B, N, L, 22)
+    x_cols = x.permute(1, 0, 2, 3).reshape(n_rows, batch * l_pad, NUM_AA_CLASSES)
+    col_valid = torch.tensor(nseqs_l, dtype=torch.int32, device=device).repeat_interleave(l_pad)
+    seq_embed = gru.unigru_stack_final(params["vgru"], x_cols, col_valid,
+                                       remat_chunk=128 if remat else 0)
+    hin = seq_embed.reshape(batch, l_pad, -1).transpose(0, 1)                         # (L, B, 512)
+    mat1d = gru.bigru_stack(params["hgru"], hin, nres_t, dropout_rate=GRU_DROPOUT,
+                            seed=seed("hgru"))
+    mat1d = mat1d.transpose(0, 1) * row_mask[..., None]                               # (B, L, 512)
+    pair = mat1d[:, :, None, :] * mat1d[:, None, :, :]
+    resinp_base = torch.cat([pair, x2[..., :-1]], dim=3)                              # 954 channels
+    del pair
+
+    def run_iteration(dmap_channel, it_seed):
+        trunk_seed = coord_seed = None
+        if it_seed is not None:
+            trunk_seed, coord_seed = fold_in(it_seed, 0), fold_in(it_seed, 1)
+        resinp = torch.cat([resinp_base, dmap_channel[..., None]], dim=3)
+        out = trunk_apply(params["trunk"], resinp, pair_mask[..., None],
+                          dropout_seed=trunk_seed, remat=remat, compute_dtype=compute_dtype)
+        dm = out[..., 0]
+        conf = (out[..., 1] * row_mask[:, None, :]).sum(dim=2) / nres_f[:, None]
+        mds = torch.stack([mds_coords(dm[b], nres_l[b]) for b in range(batch)])    # (B, L, 8)
+        coordembed = torch.cat([mat1d, mds], dim=2).transpose(0, 1)
+        gru_out = gru.bigru_stack(params["coord_gru"], coordembed, nres_t,
+                                  dropout_rate=GRU_DROPOUT, seed=coord_seed)
+        return gru_out.transpose(0, 1) @ params["coord_fc"], conf                     # (B, L, 3)
+
+    def iteration(dmap_channel, it_seed):
+        if remat_recycle and torch.is_grad_enabled():
+            return checkpoint(run_iteration, dmap_channel, it_seed, use_reentrant=False)
+        return run_iteration(dmap_channel, it_seed)
+
+    def refine_b(ca):
+        return torch.stack([refine_coords(ca[b], refine_steps, nres_l[b]) for b in range(batch)])
+
+    ca, conf = iteration(x2[..., -1], seed("init"))
+    ca = refine_b(ca)
+    best_conf, best_coords = conf, ca
+    best_mean = (conf * row_mask).sum(dim=1) / nres_f                                 # (B,)
+    for i in range(nloops):
+        diffs = ca[:, :, None, :] - ca[:, None, :, :]
+        dmap = torch.sqrt(torch.clamp(diffs.square().sum(dim=3), min=1e-8)) * pair_mask
+        it_seed = None if rngs is None else fold_in(rngs["recycle"], i)
+        ca, conf = iteration(dmap, it_seed)
+        mean_new = (conf * row_mask).sum(dim=1) / nres_f
+        better = mean_new > best_mean
+        best_mean = torch.where(better, mean_new, best_mean)
+        best_conf = torch.where(better[:, None], conf, best_conf)
+        best_coords = torch.where(better[:, None, None], ca, best_coords)
+
+    best_coords = refine_b(best_coords)
+    coords = torch.stack([calpha_to_main_chain(best_coords[b], nres_l[b]) for b in range(batch)])
+    return coords, torch.sigmoid(best_conf)

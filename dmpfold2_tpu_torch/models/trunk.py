@@ -3,16 +3,16 @@
 Counterpart of the fp32 path of ``dmpfold2_tpu/models/trunk.py``: one input
 Maxout2d (955 -> 128, 1x1, pool 3), 16 residual blocks (Maxout2d 5x5 pool 4
 -> InstanceNorm -> SCSE -> residual add) and a final 1x1 conv to 2 channels
-(distance map + confidence). The public functions take and return NHWC maps,
-as the JAX package does; inside, maps are NCHW for ``F.conv2d``. Weights are
-OIHW. All ops are mask-aware: padded positions are zero after every block.
+(distance map + confidence). Maps are NHWC, as in the JAX package; weights
+are OIHW. All ops are mask-aware: padded positions are zero after every block.
 
-The convolutions run in full fp32: the fp32 engine turns TF32 off
+:func:`trunk_apply` serves the fp32 fold and training (fp32 or bf16). Its fp32
+convolutions run in full fp32: the fp32 engine turns TF32 off
 (``engine/fold.py``), since cuDNN convolutions default to TF32.
 
 The bf16 engine (:func:`trunk_apply_bf16`, weights from :func:`pack_bf16`)
-keeps maps NHWC and runs the input layer and the 16 block convs through the
-hand-written kernels of ``kernels/conv_block.py``.
+runs the input layer and the 16 block convs through the hand-written kernels
+of ``kernels/conv_block.py``.
 """
 
 from __future__ import annotations
@@ -22,9 +22,11 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..features.dca import NUM_DCA_CHANNELS
 from ..kernels import conv_block
+from ..ops.dropout import dropout, fold_in
 from ..ops.norm import masked_instance_norm, scale_shift_from_sums
 
 TRUNK_IN_CHANNELS = NUM_DCA_CHANNELS + 512 + 1  # 955
@@ -56,7 +58,7 @@ def scse_params(gen: torch.Generator, width: int, reduction: int = 16):
     return {
         # channel SE: two bias-free linears, (in, out) layout
         "cse_w1": _uniform(gen, (width, red), 1.0 / math.sqrt(width)),
-        "cse_w2": _uniform(gen, (red, width), 1.0 / math.sqrt(red)),
+        "cse_w2": _uniform(gen, (red, width), 1.0 / math.sqrt(max(red, 1))),  # empty below 16
         # spatial SE: 1x1 conv to one channel, OIHW
         "sse_w": _uniform(gen, (1, width, 1, 1), 1.0 / math.sqrt(width)),
         "sse_b": _uniform(gen, (1,), 1.0 / math.sqrt(width)),
@@ -78,51 +80,6 @@ def trunk_params(gen: torch.Generator, in_channels: int = TRUNK_IN_CHANNELS,
 def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Same-padded conv, NCHW/OIHW (torch's zero padding of (k-1)//2)."""
     return F.conv2d(x, w, b, padding=w.shape[-1] // 2)
-
-
-def maxout2d(params, x: torch.Tensor, pool: int, mask: torch.Tensor) -> torch.Tensor:
-    """Conv to C*pool channels, max over each group of ``pool`` (channel c =
-    g*pool + p; a tie takes the first), masked instance norm. NCHW."""
-    out = _conv(x, params["w"], params["b"])
-    b, c, h, w = out.shape
-    out = out.view(b, c // pool, pool, h, w).amax(dim=2)
-    return masked_instance_norm(out, params["gamma"], params["beta"], mask)
-
-
-def scse(params, x: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
-    """Concurrent spatial & channel squeeze-excitation: cSE(x) + sSE(x). NCHW.
-
-    ``pooled`` is the spatial mean of ``x``. In this network cSE always pools
-    an affine InstanceNorm output, whose masked spatial mean is exactly the
-    norm's beta, so callers pass beta and the cSE gate is a per-model
-    constant.
-    """
-    y = torch.relu(pooled[None, :] @ params["cse_w1"]) @ params["cse_w2"]  # (1, C)
-    cse_gate = torch.sigmoid(y)[:, :, None, None]
-    sse_gate = torch.sigmoid(_conv(x, params["sse_w"], params["sse_b"]))
-    return x * cse_gate + x * sse_gate
-
-
-def resnet_block(params, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Residual block (reference network.py:85-103), inference. NCHW."""
-    mx = params["maxout"]
-    t = maxout2d(mx, x, pool=4, mask=mask)
-    t = scse(params["scse"], t, pooled=mx["beta"])
-    return (t + x) * mask
-
-
-def trunk_apply(params, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """(B, L, L, 955) NHWC -> (B, L, L, 2): distance-map + confidence channels.
-
-    ``mask``: (B, L, L, 1) validity mask.
-    """
-    x = x.permute(0, 3, 1, 2)
-    mask = mask.permute(0, 3, 1, 2)
-    out = maxout2d(params["input"], x, pool=3, mask=mask)  # already masked by the norm
-    for block in params["blocks"]:
-        out = resnet_block(block, out, mask)
-    out = _conv(out, params["out_w"], params["out_b"])
-    return (out * mask).permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------- bf16 engine
@@ -148,9 +105,8 @@ class PackedTrunk:
 def pack_bf16(params) -> PackedTrunk:
     """Pack fp32 trunk parameters (on their device) for :func:`trunk_apply_bf16`.
 
-    The cSE gate is a per-model constant in this network (it pools an affine
-    InstanceNorm output, whose masked mean is beta; see :func:`scse`), so it is
-    computed here once: ``sigmoid(relu(beta @ W1) @ W2)`` in fp32.
+    The cSE gate is a per-model constant in this network (see :func:`scse`), so
+    it is computed here once: ``sigmoid(relu(beta @ W1) @ W2)`` in fp32.
     """
     inp = params["input"]
     k_pad = conv_block.gemm_k_pad(inp["w"].shape[1])
@@ -208,3 +164,106 @@ def trunk_apply_bf16(packed: PackedTrunk, x: torch.Tensor, mask: torch.Tensor) -
         out = resnet_block_fused_norm(block, out, mask_bf, nres)
     out = out.float() @ packed.out_w + packed.out_b
     return out * mask
+
+
+# ---------------------------------------------------------------- the trunk
+#
+# Counterpart of dmpfold2_tpu/models/trunk.py:trunk_apply (:300-417): the fp32
+# fold, and training in fp32 or bf16 (differentiable, with dropout and the
+# remat tiers). Maps stay NHWC and contiguous. With compute_dtype=bfloat16 the
+# carries between blocks, the dropout, the convs and the scse/residual are
+# bf16 (each block conv through conv_block.conv5x5_maxout_diff, the argmax
+# kernel and its backward), the norm statistics fp32 and the head fp32; in
+# fp32 every conv is F.conv2d (TF32 off, engine/fold.py:use_full_fp32).
+
+BLOCK_DROPOUT = 0.2
+
+
+def _maxout_last(y: torch.Tensor, pool: int) -> torch.Tensor:
+    """(..., C * pool) -> (..., C), max over c = g * pool + p (a tie takes the first)."""
+    return y.reshape(*y.shape[:-1], y.shape[-1] // pool, pool).amax(dim=-1)
+
+
+def _input_layer(p, x: torch.Tensor, mask: torch.Tensor, dtype) -> torch.Tensor:
+    """The 1x1 maxout input layer as a GEMM in ``dtype`` (bf16: output and
+    bias in bf16, as the JAX bf16 conv emits), then the masked norm."""
+    c_out = p["w"].shape[0]
+    y = x.to(dtype) @ p["w"].reshape(c_out, -1).T.to(dtype) + p["b"].to(dtype)
+    return masked_instance_norm(_maxout_last(y, 3), p["gamma"], p["beta"], mask)
+
+
+def scse(se, t: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Concurrent spatial & channel squeeze-excitation, cSE(t) + sSE(t), NHWC
+    in t's dtype.
+
+    In this network cSE always pools an affine InstanceNorm output, whose
+    masked spatial mean is exactly the norm's ``beta``, so the cSE gate is a
+    per-model constant computed from it.
+    """
+    gate = torch.sigmoid(torch.relu(beta[None, :] @ se["cse_w1"]) @ se["cse_w2"])  # (1, C)
+    w_sse = se["sse_w"].reshape(-1, 1).to(t.dtype)
+    s = torch.sigmoid(t @ w_sse + se["sse_b"].to(t.dtype))                          # (B, L, L, 1)
+    return t * gate.to(t.dtype) + t * s
+
+
+def _block_conv(mx, x: torch.Tensor) -> torch.Tensor:
+    """The block's 5x5 conv + bias + maxout(4): the argmax kernel's Function
+    in bf16, F.conv2d in fp32."""
+    if x.dtype == torch.bfloat16:
+        return conv_block.conv5x5_maxout_diff(x, mx["w"], mx["b"])
+    y = _conv(x.permute(0, 3, 1, 2), mx["w"], mx["b"]).permute(0, 2, 3, 1)
+    return _maxout_last(y, 4)
+
+
+def resnet_block(p, x: torch.Tensor, mask: torch.Tensor, *, seed: int | None = None,
+                 remat_tail: bool = False) -> torch.Tensor:
+    """One residual block (reference network.py:85-103, JAX
+    ``trunk.resnet_block``), NHWC in x's dtype.
+
+    ``seed``: dropout 0.2 before the conv, elementwise then channelwise, its
+    masks drawn from ``seed`` (so a replay under checkpointing draws the same
+    ones). ``remat_tail``: checkpoint only the norm + scse + residual tail, so
+    the conv output (and, in bf16, the int8 index) is kept for the backward
+    and only the tail is replayed.
+    """
+    mx = p["maxout"]
+    out = x
+    if seed is not None:
+        out = dropout(out, BLOCK_DROPOUT, fold_in(seed, 0))
+        out = dropout(out, BLOCK_DROPOUT, fold_in(seed, 1),
+                      shape=(out.shape[0], 1, 1, out.shape[3]))
+    y = _block_conv(mx, out)
+
+    def tail(y_, x_):
+        t = masked_instance_norm(y_, mx["gamma"], mx["beta"], mask)
+        t = scse(p["scse"], t, mx["beta"])
+        return (t + x_) * mask
+
+    if remat_tail and torch.is_grad_enabled():
+        return checkpoint(tail, y, x, use_reentrant=False)
+    return tail(y, x)
+
+
+def trunk_apply(params, x: torch.Tensor, mask: torch.Tensor, *,
+                dropout_seed: int | None = None, remat=False,
+                compute_dtype=torch.float32) -> torch.Tensor:
+    """(B, L, L, 955) NHWC -> (B, L, L, 2) fp32: distance-map + confidence
+    channels, differentiable.
+
+    ``mask``: (B, L, L, 1) float validity mask. ``dropout_seed`` (training):
+    block i's dropout from ``fold_in(dropout_seed, i)``; None is no dropout.
+    ``remat``: False; True checkpoints each whole block (one carry per block
+    is kept); ``"save_conv"`` checkpoints each block's tail only (JAX
+    ``trunk_apply``'s tiers, picked by ``train/step.py:resolve_remat``).
+    """
+    mask = mask.to(compute_dtype)
+    out = _input_layer(params["input"], x, mask, compute_dtype)  # masked by the norm
+    for i, block in enumerate(params["blocks"]):
+        seed = None if dropout_seed is None else fold_in(dropout_seed, i)
+        if remat is True and torch.is_grad_enabled():
+            out = checkpoint(resnet_block, block, out, mask, seed=seed, use_reentrant=False)
+        else:
+            out = resnet_block(block, out, mask, seed=seed, remat_tail=remat == "save_conv")
+    c_out = params["out_w"].shape[0]
+    out = out.float() @ params["out_w"].reshape(c_out, -1).T + params["out_b"]
+    return out * mask.float()

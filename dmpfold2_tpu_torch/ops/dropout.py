@@ -1,0 +1,38 @@
+"""Dropout with masks drawn from integer seeds.
+
+Training draws its dropout masks (the trunk blocks, the residue GRUs) from a
+``torch.Generator`` seeded inside the region that uses them, from an integer
+fixed before the region. ``torch.utils.checkpoint`` restores only the global
+RNG state, so a mask drawn from an advancing generator would differ when a
+checkpointed region is replayed in the backward, and the gradients would be
+silently wrong; a seed replays the same mask. :func:`fold_in` derives one
+seed from another and an index, as ``jax.random.fold_in`` derives keys (the
+bits differ from JAX's).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from ``seed`` and ``data`` (splitmix64's mixer)."""
+    z = (seed + (data + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def keep_mask(seed: int, shape, rate: float, device) -> torch.Tensor:
+    """Bool mask of ``shape``, each entry kept with probability 1 - ``rate``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
+def dropout(x: torch.Tensor, rate: float, seed: int, shape=None) -> torch.Tensor:
+    """``where(keep, x / (1 - rate), 0)`` in ``x``'s dtype; ``shape`` (default
+    ``x.shape``) broadcasts the mask, e.g. (B, 1, 1, C) for channelwise."""
+    keep = keep_mask(seed, x.shape if shape is None else shape, rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

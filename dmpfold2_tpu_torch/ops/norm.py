@@ -14,14 +14,18 @@ import torch
 
 def masked_instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                          mask: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """InstanceNorm on NCHW ``x`` with a (B, 1, H, W) float validity mask."""
-    g = gamma[None, :, None, None]
-    b = beta[None, :, None, None]
-    count = mask.sum(dim=(2, 3), keepdim=True).clamp(min=1.0)
-    mean = (x * mask).sum(dim=(2, 3), keepdim=True) / count
-    var = ((x - mean).square() * mask).sum(dim=(2, 3), keepdim=True) / count
-    out = (x - mean) / torch.sqrt(var + eps) * g + b
-    return out * mask
+    """InstanceNorm on NHWC ``x`` with a (B, H, W, 1) float validity mask.
+
+    Statistics and arithmetic are fp32 whatever ``x``'s dtype; the result is
+    cast back to it (the JAX norm's policy, so bf16 training maps stay bf16).
+    """
+    in_dtype = x.dtype
+    x, mask = x.float(), mask.float()  # a bf16 count of L^2 ones would round
+    count = mask.sum(dim=(1, 2), keepdim=True).clamp(min=1.0)
+    mean = (x * mask).sum(dim=(1, 2), keepdim=True) / count
+    var = ((x - mean).square() * mask).sum(dim=(1, 2), keepdim=True) / count
+    out = (x - mean) / torch.sqrt(var + eps) * gamma + beta
+    return (out * mask).to(in_dtype)
 
 
 def scale_shift_from_sums(s: torch.Tensor, ss: torch.Tensor, nres: torch.Tensor,

@@ -11,11 +11,14 @@ in PyTorch layouts where a kernel or ``F.conv2d`` wants them:
 
 Three sources: :func:`params_from_jax` (a JAX tree as numpy arrays),
 :func:`load_npz` (files written by ``dmpfold2_tpu.weights.save_params``) and
-:func:`load_state_dict` (the reference's torch state-dict names).
+:func:`load_state_dict` (the reference's torch state-dict names); one sink,
+:func:`save_npz`, which writes the JAX package's file format (training's
+checkpoints).
 """
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
@@ -73,24 +76,94 @@ _KEY_PART = re.compile(r"\[('([^']*)'|(\d+))\]")
 
 
 def load_npz(path: str):
-    """Read a ``.npz`` written by the JAX package's ``save_params``.
+    """Read a ``.npz`` written by the JAX package's ``save_params`` (or by
+    :func:`save_npz`).
 
     Keys are JAX key paths such as ``"['trunk']['blocks']['maxout']['w']"``
     or ``"['vgru'][0]['wi']"``; keys that are not paths (metadata such as
-    ``__step``) are ignored.
+    ``__epoch__``) are ignored.
     """
-    tree: dict = {}
     with np.load(path) as data:
-        for key in data.files:
-            parts = [m.group(2) if m.group(2) is not None else int(m.group(3))
-                     for m in _KEY_PART.finditer(key)]
-            if not parts or "".join(m.group(0) for m in _KEY_PART.finditer(key)) != key:
-                continue
-            node = tree
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = data[key]
-    return params_from_jax(_lists(tree))
+        return params_from_jax(tree_from_keypaths({k: data[k] for k in data.files}))
+
+
+def tree_from_keypaths(arrays: dict):
+    """{JAX key path: array} -> the nested dicts and lists; keys that are not
+    paths are skipped."""
+    tree: dict = {}
+    for key, value in arrays.items():
+        parts = [m.group(2) if m.group(2) is not None else int(m.group(3))
+                 for m in _KEY_PART.finditer(key)]
+        if not parts or "".join(m.group(0) for m in _KEY_PART.finditer(key)) != key:
+            continue
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return _lists(tree)
+
+
+def keypaths(tree, prefix: str = ""):
+    """(JAX key path, leaf) pairs of a nested tree, the key paths as
+    ``jax.tree_util.keystr`` writes them (dict keys sorted, as JAX flattens)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from keypaths(tree[k], f"{prefix}['{k}']")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from keypaths(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def _oihw_to_hwio(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(_np(t).transpose(2, 3, 1, 0))
+
+
+def params_to_jax(params):
+    """Port parameters -> the JAX parameter tree as numpy arrays (HWIO convs,
+    the residual blocks stacked on axis 0): the inverse of
+    :func:`params_from_jax`."""
+    def gru(p):
+        return {k: _np(p[k]) for k in ("wi", "wh", "bi", "bh")}
+
+    def maxout(p):
+        return {"w": _oihw_to_hwio(p["w"]), "b": _np(p["b"]), "gamma": _np(p["gamma"]),
+                "beta": _np(p["beta"])}
+
+    trunk = params["trunk"]
+    blocks = [{"maxout": maxout(b["maxout"]),
+               "scse": {"cse_w1": _np(b["scse"]["cse_w1"]), "cse_w2": _np(b["scse"]["cse_w2"]),
+                        "sse_w": _oihw_to_hwio(b["scse"]["sse_w"]),
+                        "sse_b": _np(b["scse"]["sse_b"])}} for b in trunk["blocks"]]
+    stacked = {part: {k: np.stack([b[part][k] for b in blocks]) for k in blocks[0][part]}
+               for part in ("maxout", "scse")}
+    return {
+        "vgru": [gru(p) for p in params["vgru"]],
+        "hgru": [{d: gru(l[d]) for d in ("fwd", "bwd")} for l in params["hgru"]],
+        "trunk": {"input": maxout(trunk["input"]), "blocks": stacked,
+                  "out_w": _oihw_to_hwio(trunk["out_w"]), "out_b": _np(trunk["out_b"])},
+        "coord_gru": [{d: gru(l[d]) for d in ("fwd", "bwd")} for l in params["coord_gru"]],
+        "coord_fc": _np(params["coord_fc"]),
+    }
+
+
+def save_npz(path: str, params, extra: dict | None = None) -> None:
+    """Write port parameters as the ``.npz`` that the JAX package's
+    ``weights.save_params`` writes (JAX key paths, JAX layouts), so that
+    ``dmpfold2_tpu.weights.load_params`` reads it. ``extra``: metadata
+    arrays under their own ``__``-prefixed keys. Atomic: a temp file, then a
+    rename."""
+    arrays = dict(keypaths(params_to_jax(params)))
+    if extra:
+        arrays.update({k: np.asarray(v) for k, v in extra.items()})
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
 
 
 def _lists(node):

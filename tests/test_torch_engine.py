@@ -36,6 +36,9 @@ PORT_MODULES = [
     "dmpfold2_tpu_torch.kernels.rgru", "dmpfold2_tpu_torch.kernels.refine",
     "dmpfold2_tpu_torch.kernels.conv_block",
     "dmpfold2_tpu_torch.utils.aln", "dmpfold2_tpu_torch.utils.pdb",
+    "dmpfold2_tpu_torch.ops.dropout", "dmpfold2_tpu_torch.train.loss",
+    "dmpfold2_tpu_torch.train.dataset", "dmpfold2_tpu_torch.train.checkpoint",
+    "dmpfold2_tpu_torch.train.step", "dmpfold2_tpu_torch.train.loop",
 ]
 
 
