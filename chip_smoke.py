@@ -11,8 +11,10 @@ Phases, each printing one JSON line:
    (one nvcc per source, all started together) and prints ptxas's register,
    shared-memory and spill lines.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
-   the shapes of the default fold of the bundled PF10963 example (and more),
-   with the tolerance stated; times from CUDA events after warm-up.
+   the shapes of the default fold of the bundled PF10963 example (and more:
+   vgru also at 1024 x 352 with ragged depths, the conv in both modes up to
+   L 352), each launched twice for the same bits, with the tolerance stated;
+   device times from torch.profiler or CUDA events after warm-up.
 4. fold    -- ``aln_to_coords`` on PF10963 at full width (512/128/16, random
    weights from seed 0) with the defaults ``-n 10 -m 100`` on ``cuda``, once
    per engine (fp32, then bf16): a warm-up fold, then the timed fold with
@@ -97,6 +99,13 @@ STATS_RTOL = 1e-4
 # kernel shapes: PF10963's bucket, a batch with mixed nres, an L that is not a
 # multiple of either kernel's pixel tile (8 x 16 and 128)
 TRUNK_CASES = ((1, L_PAD, [NRES]), (3, L_PAD, [88, 61, 5]), (2, 53, [53, 20]))
+# the conv kernel in both modes: TRUNK_CASES, an odd count of pixel tiles
+# (5 x 3, a persistent grid of fewer blocks than SMs) and the training crop's
+# bucket
+DIFF_CASES = TRUNK_CASES + ((2, 40, [40, 17]), (1, 352, [350]))
+# vgru beyond PF10963: a deep, wide alignment (bucketed long targets) with
+# ragged per-column depths, several column chunks per block
+VGRU_WIDE = (1024, 352)
 GEMM_K_IN = 955  # the input layer's channels: 512 pair + 442 DCA + 1 dmap
 
 
@@ -122,25 +131,30 @@ def device_ms(fn, fragment: str, reps: int) -> float:
     """Mean device milliseconds per launch of the kernels whose name holds
     ``fragment``, from torch.profiler over ``reps`` calls after warm-up. Unlike
     CUDA events around back-to-back calls, this leaves out the host time of a
-    wrapper whose kernel is shorter than its Python."""
+    wrapper whose kernel is shorter than its Python. The profiler can lose
+    activity records (an H100 run once reported 39 of 50 launches), so a
+    profile whose count is not ``reps`` is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if fragment in evt.key:
-            us = getattr(evt, "self_device_time_total", None)
-            total += us if us is not None else getattr(evt, "self_cuda_time_total", 0.0)
-            count += evt.count
-    if count != reps:
-        raise AssertionError(f"profiler saw {count} launches of {fragment}, expected {reps}")
-    return total / count / 1e3
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for evt in prof.key_averages():
+            if fragment in evt.key:
+                us = getattr(evt, "self_device_time_total", None)
+                total += us if us is not None else getattr(evt, "self_cuda_time_total", 0.0)
+                count += evt.count
+        if count == reps:
+            return total / count / 1e3
+        counts.append(count)
+    raise AssertionError(f"profiler saw {counts} launches of {fragment}, expected {reps}")
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -187,20 +201,29 @@ def phase_kernels(params) -> dict:
     rng = np.random.default_rng(0)
     cases, rows = [], {}
 
-    # ---- vgru: 256 rows x 88 columns, H = 512
+    # ---- vgru: 256 rows x 88 columns (uniform and per-column depths) and
+    # 1024 x 352 ragged, H = 512; each launched twice: the same bits
     layers = [{k: v.to(dev) for k, v in p.items()} for p in params["vgru"]]
     aln = torch.from_numpy(rng.integers(0, 22, (N_PAD, L_PAD)).astype(np.int32)).to(dev)
     uniform = torch.full((L_PAD,), NSEQS, dtype=torch.int32, device=dev)
     ragged = torch.from_numpy(rng.integers(1, N_PAD + 1, L_PAD).astype(np.int32)).to(dev)
+    n_wide, c_wide = VGRU_WIDE
+    aln_wide = torch.from_numpy(rng.integers(0, 22, VGRU_WIDE).astype(np.int32)).to(dev)
+    ragged_wide = torch.from_numpy(rng.integers(1, n_wide + 1, c_wide).astype(np.int32)).to(dev)
     err = 0.0
-    for label, valid in (("uniform 252", uniform), ("per-column", ragged)):
-        out = vgru.vgru_final_cols(layers, aln, valid)
-        ref = vgru.vgru_final_cols_plain(layers, aln, valid)
+    for label, a, valid in (("uniform 252", aln, uniform), ("per-column", aln, ragged),
+                            ("wide, per-column", aln_wide, ragged_wide)):
+        out = vgru.vgru_final_cols(layers, a, valid)
+        out2 = vgru.vgru_final_cols(layers, a, valid)
+        ref = vgru.vgru_final_cols_plain(layers, a, valid)
         e = (out - ref).abs().max().item()
         err = max(err, e)
-        cases.append({"kernel": "vgru", "case": label, "shape": [N_PAD, L_PAD, WIDTH],
-                      "max_abs_err": e})
-    ms = time_ms(lambda: vgru.vgru_final_cols(layers, aln, uniform), reps=10)
+        same = bool(torch.equal(out, out2))
+        cases.append({"kernel": "vgru", "case": label, "shape": [*a.shape, WIDTH],
+                      "max_abs_err": e, "tol": GRU_TOL, "second_launch_identical": same,
+                      "ok": e <= GRU_TOL and same})
+    ms = device_ms(lambda: vgru.vgru_final_cols(layers, aln, uniform), "vgru_kernel", reps=10)
+    call_ms = time_ms(lambda: vgru.vgru_final_cols(layers, aln, uniform), reps=10)
     plain_ms = time_ms(lambda: vgru.vgru_final_cols_plain(layers, aln, uniform), reps=2, warmup=1)
     gru_lib = torch.nn.GRU(22, WIDTH, num_layers=2).to(dev)
     with torch.no_grad():
@@ -219,8 +242,8 @@ def phase_kernels(params) -> dict:
     b, by = bound_ms(flops, nbytes)
     rows["vgru"] = {"name": "vgru", "route": "cuda", "source": "dmpfold2_tpu_torch/csrc/vgru.cu",
                     "replaces": "dmpfold2_tpu/kernels/vgru.py:113", "max_abs_err": err,
-                    "tol": GRU_TOL, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
-                    "bound_by": by, "library_ms": library_ms,
+                    "tol": GRU_TOL, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                    "bound_ms": b, "bound_by": by, "library_ms": library_ms,
                     "library": "torch.nn.GRU(22, 512, num_layers=2) on rows [0, 252)",
                     "library_max_abs_err": lib_err}
 
@@ -292,7 +315,7 @@ def phase_kernels(params) -> dict:
                                  f"{row['max_abs_err']:.3g} > {row['tol']:.3g}")
     failed = [c for c in cases if not c.get("ok", True)]
     if failed:
-        raise AssertionError(f"bf16 trunk kernels differ from their plain versions: {failed}")
+        raise AssertionError(f"kernels differ from their plain versions: {failed}")
     return rows
 
 
@@ -330,7 +353,7 @@ def _trunk_kernels(params, rng, cases) -> dict:
     rows = {}
     for kind, (kernel, plain, w, b, c_in) in kinds.items():
         worst_ulp, worst_abs = 0.0, 0.0
-        for batch, l, nres in TRUNK_CASES:
+        for batch, l, nres in (DIFF_CASES if kind == "conv5x5_maxout" else TRUNK_CASES):
             x, nr = inputs(kind, batch, l, nres)
             out, s, ss = kernel(x, w, b, nr)
             out2, s2, ss2 = kernel(x, w, b, nr)
@@ -353,13 +376,13 @@ def _trunk_kernels(params, rng, cases) -> dict:
         call_ms = time_ms(lambda: kernel(x, w, b, nr), reps=50)
         plain_ms = time_ms(lambda: plain(x, w, b, nr), reps=5)
         npix = L_PAD * L_PAD
-        c_out = w.shape[1]
+        c_out = b.shape[0]
         if kind == "conv5x5_maxout":
-            flops = 2.0 * npix * w.shape[0] * c_out
+            flops = 2.0 * npix * w.numel()
             nbytes = 2 * (x.numel() + w.numel() + npix * c_out // 4) + 4 * (c_out + 1 + 2 * c_out // 4)
             x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory, as the kernel reads it
-            w_lib = (w.view(5, 5, CWIDTH, c_out).permute(3, 2, 0, 1)
-                     .contiguous(memory_format=torch.channels_last))
+            w_lib = conv_block.unpack_conv5x5_weights(w).contiguous(
+                memory_format=torch.channels_last)
             library_ms = time_ms(lambda: F.conv2d(x_nchw, w_lib, padding=2), reps=50)
             library = ("F.conv2d on channels-last bf16 (cuDNN): the 5x5 conv to 512 channels "
                        "only, without bias, maxout or statistics; computes less than the kernel")
@@ -384,9 +407,7 @@ def _trunk_kernels(params, rng, cases) -> dict:
 
 
 # the argmax mode and conv5x5_maxout_diff: the shapes of the kernel check
-# (TRUNK_CASES and the training crop's bucket, B 1, L 352) and of the timing
-# (the two training buckets of phase train)
-DIFF_CASES = TRUNK_CASES + ((1, 352, [350]),)
+# (DIFF_CASES) and of the timing (the two training buckets of phase train)
 DIFF_TIMING_L = (L_PAD, 352)
 DIFF_GRAD_CASES = ((1, L_PAD, [NRES]), (2, 53, [53, 20]), (1, 352, [350]))
 # the Function's gradients against autograd through the plain version, with
@@ -427,7 +448,7 @@ def _argmax_kernel(params, rng, cases) -> dict:
 
     def plain_pre_max(x):
         """The plain version's fp32 values before the max: (B, L, L, C/4, 4)."""
-        wf = wp.float().view(5, 5, CWIDTH, c_out).permute(3, 2, 0, 1)
+        wf = conv_block.unpack_conv5x5_weights(wp.float())
         y = F.conv2d(x.float().permute(0, 3, 1, 2), wf, bp, padding=2).permute(0, 2, 3, 1)
         return y.reshape(*y.shape[:3], c_out // 4, 4)
 
@@ -490,7 +511,7 @@ def _argmax_kernel(params, rng, cases) -> dict:
     for l in DIFF_TIMING_L:
         x, _ = inputs(1, l, [l])
         npix = l * l
-        fwd_flops = 2.0 * npix * wp.shape[0] * c_out
+        fwd_flops = 2.0 * npix * wp.numel()
         fwd_bytes = 2 * (x.numel() + wp.numel() + npix * c_out // 4) + 4 * c_out + npix * c_out // 4
         # the backward reads x, w, the cotangent and the index and writes dx,
         # dw and db; dx and dw are each one product of the forward's size
@@ -502,7 +523,7 @@ def _argmax_kernel(params, rng, cases) -> dict:
         row["fwd_plain_ms"] = time_ms(lambda: conv_block.conv5x5_maxout_argmax_plain(x, wp, bp),
                                       reps=3)
         x_nchw = x.permute(0, 3, 1, 2)
-        w_lib = wp.view(5, 5, CWIDTH, c_out).permute(3, 2, 0, 1).contiguous(
+        w_lib = conv_block.unpack_conv5x5_weights(wp).contiguous(
             memory_format=torch.channels_last)
         row["fwd_library_ms"] = time_ms(lambda: F.conv2d(x_nchw, w_lib, padding=2), reps=20)
         row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(fwd_flops, fwd_bytes, PEAK_BF16_TENSOR)

@@ -1,8 +1,7 @@
-// Shared pieces of the two maxout GEMM kernels (conv5x5_maxout.cu,
-// gemm_maxout.cu): cp.async copies and the epilogue that turns a block's
-// fp32 accumulator tile into the bf16 maxout output and its masked
-// InstanceNorm partial sums, or (argmax mode) the index of each output's
-// winning pool slice.
+// Pieces of the input layer's GEMM kernel (gemm_maxout.cu): cp.async copies
+// and the epilogue that turns a block's fp32 accumulator tile into the bf16
+// maxout output and its masked InstanceNorm partial sums. (The block conv,
+// conv5x5_maxout.cu, has its own epilogue from wgmma's registers.)
 //
 // A block's tile is kTileM = 128 output pixels by 32 whole maxout groups
 // (32 * pool accumulator columns, torch channel order c = g * pool + p), so
@@ -35,8 +34,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Bias + maxout + bf16 store + masked statistics (or the winning slice) of
-// one tile.
+// Bias + maxout + bf16 store + masked statistics of one tile.
 //
 // acc:     [kTileM][ld] fp32 accumulators in shared memory, column
 //          g * kPool + p of this block's kGroups * kPool columns
@@ -45,26 +43,18 @@ __device__ __forceinline__ void cp_async_wait() {
 //          a row past the image
 // out:     this target's (L, L, c_groups) bf16 output; the block writes
 //          channels [g0, g0 + kGroups)
-// partial: stats mode: this (target, pixel tile)'s [2][c_groups] fp32
-//          partial sums of the pre-rounding maxout over rows and columns <
-//          nres: sums, then sums of squares
-// index:   argmax mode (kArgmax): this target's (L, L, c_groups) int8 index
-//          of the winning pool slice, laid out as out; no statistics
-// red:     stats mode: 2 * kThreads floats of shared scratch (not
-//          overlapping acc)
+// partial: this (target, pixel tile)'s [2][c_groups] fp32 partial sums of
+//          the pre-rounding maxout over rows and columns < nres: sums, then
+//          sums of squares
+// red:     2 * kThreads floats of shared scratch (not overlapping acc)
 //
-// The maximum is the same fmaxf chain in both modes, so their outputs are the
-// same bits. The index is the first slice p = 0, 1, ... whose value is
-// strictly greater than every earlier one: ties go to the lower slice, as
-// torch's max and the JAX kernel's argmax (conv_block.py:126-134) do.
 // Sums are taken in a fixed order (per thread over its rows, then over the
 // 8 warps in order), with no atomics: the same inputs give the same bits.
-template <int kPool, bool kArgmax = false, typename PixelFn>
+template <int kPool, typename PixelFn>
 __device__ __forceinline__ void epilogue(const float* acc, int ld, const float* __restrict__ bias,
                                          PixelFn pixel, int L, int nres,
                                          __nv_bfloat16* __restrict__ out, int c_groups, int g0,
-                                         float* __restrict__ partial, float* red,
-                                         signed char* __restrict__ index = nullptr) {
+                                         float* __restrict__ partial, float* red) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   float b[kPool];
 #pragma unroll
@@ -76,29 +66,14 @@ __device__ __forceinline__ void epilogue(const float* acc, int ld, const float* 
     if (i >= L) continue;
     const float* a = acc + r * ld + lane * kPool;
     float v = a[0] + b[0];
-    float best = v;
-    int win = 0;
 #pragma unroll
-    for (int p = 1; p < kPool; ++p) {
-      const float t = a[p] + b[p];
-      if constexpr (kArgmax) {
-        if (t > best) {
-          best = t;
-          win = p;
-        }
-      }
-      v = fmaxf(v, t);
-    }
-    const size_t o = ((size_t)i * L + j) * c_groups + g0 + lane;
-    out[o] = __float2bfloat16(v);
-    if constexpr (kArgmax) {
-      index[o] = static_cast<signed char>(win);
-    } else if (i < nres && j < nres) {
+    for (int p = 1; p < kPool; ++p) v = fmaxf(v, a[p] + b[p]);
+    out[((size_t)i * L + j) * c_groups + g0 + lane] = __float2bfloat16(v);
+    if (i < nres && j < nres) {
       s += v;
       ss += v * v;
     }
   }
-  if constexpr (kArgmax) return;
   red[warp * 32 + lane] = s;
   red[kThreads + warp * 32 + lane] = ss;
   __syncthreads();

@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of each library's entry points: {name: argtypes}
 SIGNATURES = {
-    "vgru": {"vgru_final_cols": [_P, _P, _I, _I, _I] + [_P] * 9 + [_P]},
+    "vgru": {"vgru_final_cols": [_P, _P, _I, _I, _I] + [_P] * 8 + [_P, _P, _P]},
     "rgru": {"rgru_seq": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P]},
     "refine": {"refine_coords": [_P, _P, _I, _I, _I, _P]},
     "conv5x5_maxout": {"conv5x5_maxout_stats": [_P] * 6 + [_I] * 4 + [_P],

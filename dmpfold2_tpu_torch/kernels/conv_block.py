@@ -19,8 +19,12 @@ of squares of the pre-rounding maxout over [0, nres)^2 per target and
 channel, or, in argmax mode, the int8 index of the winning slice. Maps are
 NHWC, as the JAX package keeps them at this boundary.
 
-On a CUDA tensor a wrapper launches its kernel or raises; it never reaches
-cuDNN, cuBLAS or the plain version. On a CPU tensor it runs the plain
+The conv kernel is a persistent, warp-specialised Hopper kernel: TMA loads
+of the halo patch and of the weights, packed K-major (c_out, 3200), and
+wgmma products over work items of an 8 x 16-pixel patch by 256 output
+columns (``CONV_TILE``, ``CONV_N_TILE``; see the note in
+``csrc/conv5x5_maxout.cu``). On a CUDA tensor a wrapper launches its kernel
+or raises; it never reaches cuDNN, cuBLAS or the plain version. On a CPU tensor it runs the plain
 version, which computes in fp32 on the same bf16 operands. The engine packs
 weights once (:func:`pack_conv5x5_weights`, :func:`pack_gemm_weights`), when
 it puts the parameters on the device; training packs the live weights on
@@ -39,8 +43,8 @@ KSIZE = 5
 CONV_POOL = 4
 GEMM_POOL = 3
 CONV_C_IN = 128       # the conv kernel's input width
-CONV_N_TILE = 128     # conv output columns per block: 32 whole groups of 4
-CONV_TILE = (8, 16)   # conv pixels per block: an 8 x 16 patch
+CONV_N_TILE = 256     # conv output columns per work item: 64 whole groups of 4
+CONV_TILE = (8, 16)   # conv pixels per work item: an 8 x 16 patch
 GEMM_N_TILE = 96      # GEMM output columns per block: 32 whole groups of 3
 GEMM_K_ALIGN = 64     # the GEMM's K step; K is padded to a multiple upstream
 GEMM_TILE_M = 128     # GEMM pixels per block
@@ -56,14 +60,23 @@ def gemm_k_pad(c_in: int) -> int:
 
 
 def pack_conv5x5_weights(w: torch.Tensor, b: torch.Tensor):
-    """OIHW (c_out, c_in, 5, 5) fp32 -> ((25 * c_in, c_out) bf16, (c_out,) fp32).
+    """OIHW (c_out, c_in, 5, 5) fp32 -> ((c_out, 25 * c_in) bf16, (c_out,) fp32).
 
-    Row (dy * 5 + dx) * c_in + ci, column c in torch order, so a group's pool
-    slices are adjacent columns and a block's column tile holds whole groups.
+    Row c in torch order, column (dy * 5 + dx) * c_in + ci: K contiguous, the
+    layout the kernel's TMA loads and wgmma reads (B K-major), and a group's
+    pool slices are adjacent rows, so a 256-row tile holds whole groups.
     """
     c_out, c_in = w.shape[:2]
-    packed = w.permute(2, 3, 1, 0).reshape(KSIZE * KSIZE * c_in, c_out)
+    packed = w.permute(0, 2, 3, 1).reshape(c_out, KSIZE * KSIZE * c_in)
     return packed.to(torch.bfloat16).contiguous(), b.to(torch.float32).contiguous()
+
+
+def unpack_conv5x5_weights(w_packed: torch.Tensor) -> torch.Tensor:
+    """The packed (c_out, 25 * c_in) weights back to OIHW (c_out, c_in, 5, 5),
+    in the packed dtype: a view, no copy."""
+    c_out = w_packed.shape[0]
+    c_in = w_packed.shape[1] // (KSIZE * KSIZE)
+    return w_packed.view(c_out, KSIZE, KSIZE, c_in).permute(0, 3, 1, 2)
 
 
 def pack_gemm_weights(w: torch.Tensor, b: torch.Tensor, k_pad: int):
@@ -93,9 +106,7 @@ def conv5x5_maxout_stats_plain(x: torch.Tensor, w_packed: torch.Tensor,
                                b_packed: torch.Tensor, nres: torch.Tensor):
     """Plain version of :func:`conv5x5_maxout_stats`: ``F.conv2d`` in fp32 on
     the bf16-rounded operands, bias, maxout, masked sums."""
-    batch, l_rows, l_cols, c_in = x.shape
-    c_out = w_packed.shape[1]
-    w = w_packed.to(torch.bfloat16).float().view(KSIZE, KSIZE, c_in, c_out).permute(3, 2, 0, 1)
+    w = unpack_conv5x5_weights(w_packed.to(torch.bfloat16).float())
     xf = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
     y = _maxout_nhwc(F.conv2d(xf, w, b_packed.float(), padding=KSIZE // 2), CONV_POOL)
     s, ss = _masked_sums(y, nres)
@@ -127,15 +138,15 @@ def _launch(lib: str, entry: str, x, w_packed, b_packed, nres, tiles: int, pool:
             dim3: int):
     """Allocate the output and the partials, launch, reduce the partials per target."""
     batch, l_rows = x.shape[:2]
-    c_groups = w_packed.shape[1] // pool
+    c_out = b_packed.shape[0]
+    c_groups = c_out // pool
     out = torch.empty((batch, l_rows, l_rows, c_groups), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((batch, tiles, 2, c_groups), dtype=torch.float32, device=x.device)
     fn = _build.load(lib, entry)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(), nres.data_ptr(),
-                 out.data_ptr(), partial.data_ptr(), batch, l_rows, dim3,
-                 w_packed.shape[1], stream)
+                 out.data_ptr(), partial.data_ptr(), batch, l_rows, dim3, c_out, stream)
     torch.cuda.check_error(err)
     sums = partial.sum(dim=1)  # fixed order: the same bits on every run
     return out, sums[:, 0], sums[:, 1]
@@ -146,15 +157,14 @@ def _check_conv(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor)
     if x.dim() != 4 or x.shape[1] != x.shape[2] or x.shape[3] != CONV_C_IN:
         raise ValueError(f"conv5x5_maxout: x must be (B, L, L, {CONV_C_IN}); got "
                          f"{tuple(x.shape)}")
-    batch = x.shape[0]
-    c_out = w_packed.shape[-1]
-    if c_out <= 0 or c_out % CONV_N_TILE or batch > 65535:
-        raise ValueError(f"conv5x5_maxout: c_out must be a multiple of {CONV_N_TILE} and "
-                         f"B <= 65535; got c_out {c_out}, B {batch}")
+    c_out = w_packed.shape[0] if w_packed.dim() == 2 else 0
+    if c_out <= 0 or c_out % CONV_N_TILE:
+        raise ValueError(f"conv5x5_maxout: w_packed must be (c_out, {KSIZE * KSIZE * CONV_C_IN}) "
+                         f"with c_out a multiple of {CONV_N_TILE}; got {tuple(w_packed.shape)}")
     dev = x.device
     _check("conv5x5_maxout: x", x, torch.bfloat16, x.shape, dev)
     _check("conv5x5_maxout: w_packed", w_packed, torch.bfloat16,
-           (KSIZE * KSIZE * CONV_C_IN, c_out), dev)
+           (c_out, KSIZE * KSIZE * CONV_C_IN), dev)
     _check("conv5x5_maxout: b_packed", b_packed, torch.float32, (c_out,), dev)
 
 
@@ -162,7 +172,7 @@ def conv5x5_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torc
                          nres: torch.Tensor):
     """Fused 5x5 conv + bias + maxout(4) + masked sums, NHWC.
 
-    x (B, L, L, 128) bf16; w_packed (3200, c_out) bf16 and b_packed (c_out,)
+    x (B, L, L, 128) bf16; w_packed (c_out, 3200) bf16 and b_packed (c_out,)
     fp32 from :func:`pack_conv5x5_weights`; nres (B,) int32 ->
     (out (B, L, L, c_out / 4) bf16, sum (B, c_out / 4), sumsq (B, c_out / 4)).
     """
@@ -185,8 +195,8 @@ def conv5x5_maxout_argmax_plain(x: torch.Tensor, w_packed: torch.Tensor,
     the bf16-rounded operands, bias, maxout with the index of the winning
     slice (``torch.max`` returns the first on a tie)."""
     batch, l_rows, l_cols, c_in = x.shape
-    c_out = w_packed.shape[1]
-    w = w_packed.to(torch.bfloat16).float().view(KSIZE, KSIZE, c_in, c_out).permute(3, 2, 0, 1)
+    c_out = w_packed.shape[0]
+    w = unpack_conv5x5_weights(w_packed.to(torch.bfloat16).float())
     xf = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
     y = F.conv2d(xf, w, b_packed.float(), padding=KSIZE // 2)
     y = y.permute(0, 2, 3, 1).reshape(batch, l_rows, l_cols, c_out // CONV_POOL, CONV_POOL)
@@ -198,7 +208,7 @@ def conv5x5_maxout_argmax(x: torch.Tensor, w_packed: torch.Tensor, b_packed: tor
     """Fused 5x5 conv + bias + maxout(4) with the winning slice, NHWC (the
     kernel's argmax mode).
 
-    x (B, L, L, 128) bf16; w_packed (3200, c_out) bf16 and b_packed (c_out,)
+    x (B, L, L, 128) bf16; w_packed (c_out, 3200) bf16 and b_packed (c_out,)
     fp32 from :func:`pack_conv5x5_weights` -> (out (B, L, L, c_out / 4) bf16,
     index (B, L, L, c_out / 4) int8 in 0..3: ``out[..., g]`` is slice
     ``index[..., g]`` of channels g * 4 .. g * 4 + 3, the first on a tie).
@@ -209,7 +219,7 @@ def conv5x5_maxout_argmax(x: torch.Tensor, w_packed: torch.Tensor, b_packed: tor
         return conv5x5_maxout_argmax_plain(x, w_packed, b_packed)
     _check_conv(x, w_packed, b_packed)
     batch, l_rows = x.shape[:2]
-    c_out = w_packed.shape[1]
+    c_out = w_packed.shape[0]
     shape = (batch, l_rows, l_rows, c_out // CONV_POOL)
     out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
     index = torch.empty(shape, dtype=torch.int8, device=x.device)

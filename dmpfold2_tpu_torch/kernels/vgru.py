@@ -5,8 +5,15 @@ with ``csrc/vgru.cu``. A 2-layer GRU scanned over the alignment rows for
 independent columns (residue positions); each column freezes at its own valid
 depth; returns layer 2's final state (n_cols, H).
 
-On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor it
-runs :func:`vgru_final_cols_plain`.
+The kernel is one persistent cooperative grid, one block per 4 hidden units
+with its slice of the weights resident in shared memory for the whole scan,
+and one grid barrier per row (see the note in ``csrc/vgru.cu``). It takes the
+parameters as they are (no packing) and a scratch of 4 x H x n_cols fp32 for
+the two layers' double-buffered states, which the wrapper allocates.
+
+On a CUDA tensor the wrapper launches the kernel or raises: also when the
+card cannot hold all H / 4 blocks at once, since a grid barrier without
+co-residency could hang. On a CPU tensor it runs :func:`vgru_final_cols_plain`.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ def vgru_final_cols(layers, aln_cols: torch.Tensor, col_valid: torch.Tensor) -> 
     out = torch.empty((n_cols, hidden), dtype=torch.float32, device=device)
     if n_cols == 0:
         return out
+    state = torch.empty((4, hidden, n_cols), dtype=torch.float32, device=device)
     fn = _build.load("vgru")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -65,7 +73,8 @@ def vgru_final_cols(layers, aln_cols: torch.Tensor, col_valid: torch.Tensor) -> 
         err = fn(aln_cols.data_ptr(), col_valid.data_ptr(), n_rows, n_cols, hidden,
                  l1["wi"].data_ptr(), l1["wh"].data_ptr(), l2["wi"].data_ptr(),
                  l2["wh"].data_ptr(), l1["bi"].data_ptr(), l1["bh"].data_ptr(),
-                 l2["bi"].data_ptr(), l2["bh"].data_ptr(), out.data_ptr(), stream)
+                 l2["bi"].data_ptr(), l2["bh"].data_ptr(), state.data_ptr(), out.data_ptr(),
+                 stream)
     launches += 1
     torch.cuda.check_error(err)
     return out

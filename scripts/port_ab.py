@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""A/B of two checkouts of the PyTorch port (``dmpfold2_tpu_torch``) on one GPU.
+
+    python3 scripts/port_ab.py OTHER_TREE [THIS_TREE]
+
+Runs the trees in turns A, B, B, A (A = OTHER_TREE, B = THIS_TREE, default the
+checkout holding this script), each turn a process that imports the
+package from its tree, builds that tree's kernels into its own
+``build/torch_kernels/`` and prints one JSON line:
+
+* the device time per launch (torch.profiler) of vgru at PF10963's 256 x 88
+  (depth 252), of conv5x5_maxout in stats mode at B 1, L 88 (nres 82) and in
+  argmax mode at L 88 and L 352, and the conv wrapper's call time (CUDA
+  events around back-to-back calls);
+* the fp32 and bf16 default folds of PF10963 (``chip_smoke.phase_fold``: five
+  timed folds, exact launch counts) and their device time by category
+  (``chip_smoke.phase_profile``).
+
+Inputs are made from fixed seeds, so every turn sees the same data. The
+measuring code is this checkout's ``chip_smoke.py``; only the package under
+test changes between turns. Then one summary line with each tree's values
+over its turns, sorted.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import importlib.util
+import io
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def measure(tree: str) -> dict:
+    """One turn: every number above for the package in ``tree``."""
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    path = os.path.join(HERE, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from dmpfold2_tpu_torch.engine.fold import use_full_fp32
+    from dmpfold2_tpu_torch.kernels import _build, conv_block, vgru
+    from dmpfold2_tpu_torch.models.gruresnet import init_params
+
+    assert os.path.dirname(os.path.dirname(vgru.__file__)).startswith(os.path.abspath(tree))
+    _build.build()
+    use_full_fp32()
+    dev = torch.device("cuda")
+    params = init_params(seed=0, width=cs.WIDTH, cwidth=cs.CWIDTH, num_blocks=cs.BLOCKS)
+    rng = np.random.default_rng(0)
+    res = {"tree": tree}
+
+    layers = [{k: v.to(dev) for k, v in p.items()} for p in params["vgru"]]
+    aln = torch.from_numpy(rng.integers(0, 22, (cs.N_PAD, cs.L_PAD)).astype(np.int32)).to(dev)
+    depth = torch.full((cs.L_PAD,), cs.NSEQS, dtype=torch.int32, device=dev)
+    res["vgru_ms"] = cs.device_ms(lambda: vgru.vgru_final_cols(layers, aln, depth),
+                                  "vgru_kernel", reps=10)
+
+    mx = params["trunk"]["blocks"][0]["maxout"]
+    wp, bp = conv_block.pack_conv5x5_weights(mx["w"].to(dev), mx["b"].to(dev))
+    for l, nres in ((cs.L_PAD, cs.NRES), (352, 350)):
+        x = torch.from_numpy(rng.normal(size=(1, l, l, cs.CWIDTH)).astype(np.float32))
+        x = x.to(torch.bfloat16).to(dev)
+        nr = torch.tensor([nres], dtype=torch.int32, device=dev)
+        if l == cs.L_PAD:
+            res["conv_stats_ms"] = cs.device_ms(
+                lambda: conv_block.conv5x5_maxout_stats(x, wp, bp, nr), "conv5x5_maxout_kernel",
+                reps=50)
+            res["conv_stats_call_ms"] = cs.time_ms(
+                lambda: conv_block.conv5x5_maxout_stats(x, wp, bp, nr), reps=50)
+        res[f"conv_argmax_ms_L{l}"] = cs.device_ms(
+            lambda: conv_block.conv5x5_maxout_argmax(x, wp, bp), "conv5x5_maxout_argmax_kernel",
+            reps=20)
+
+    for precision in ("fp32", "bf16"):
+        lines = io.StringIO()
+        with contextlib.redirect_stdout(lines):
+            cs.phase_fold(params, precision)
+            cs.phase_profile(params, precision)
+        fold, prof = (json.loads(line) for line in lines.getvalue().splitlines())
+        res[f"fold_{precision}"] = {"wall_s_median": fold["wall_s_median"],
+                                    "wall_s_all": fold["wall_s_all"],
+                                    "launches": fold["launches"],
+                                    "device_busy_ms": prof["device_busy_ms"],
+                                    "by_category_ms": prof["by_category_ms"]}
+    return res
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other")
+    ap.add_argument("this", nargs="?", default=HERE)
+    ap.add_argument("--turn", help=argparse.SUPPRESS)  # a child process: measure one tree
+    args = ap.parse_args()
+    if args.turn:
+        print(json.dumps(measure(args.turn)), flush=True)
+        return
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    trees = {"A": os.path.abspath(args.other), "B": os.path.abspath(args.this)}
+    turns = []
+    for label in "ABBA":
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), args.other,
+                              "--turn", trees[label]],
+                             capture_output=True, text=True, check=True).stdout
+        row = json.loads(out.strip().splitlines()[-1])
+        row["label"] = label
+        print(json.dumps(row), flush=True)
+        turns.append(row)
+    summary = {"card": smi}
+    for label, tree in trees.items():
+        mine = [t for t in turns if t["label"] == label]
+        summary[label] = {"tree": tree}
+        for key in ("vgru_ms", "conv_stats_ms", "conv_stats_call_ms", "conv_argmax_ms_L88",
+                    "conv_argmax_ms_L352"):
+            summary[label][key] = sorted(t[key] for t in mine)
+        for precision in ("fp32", "bf16"):
+            summary[label][f"fold_{precision}_wall_s_median"] = sorted(
+                t[f"fold_{precision}"]["wall_s_median"] for t in mine)
+    print(json.dumps(summary), flush=True)
+
+
+if __name__ == "__main__":
+    main()

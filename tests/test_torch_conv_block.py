@@ -105,6 +105,54 @@ def test_gemm_plain_matches_pallas_stats():
     np.testing.assert_allclose(ss.numpy(), np.asarray(ref_ss), rtol=STATS_RTOL)
 
 
+@pytest.mark.parametrize("c_in,c_out", [(8, 32), (128, 512)])
+def test_conv_packing_round_trips(c_in, c_out):
+    """The kernel's K-major packing: row c, column (dy * 5 + dx) * c_in + ci;
+    unpacking gives back the bf16-rounded OIHW weights leaf by leaf."""
+    g = torch.Generator().manual_seed(c_in)
+    w, b = torch.randn(c_out, c_in, 5, 5, generator=g), torch.randn(c_out, generator=g)
+    wp, bp = conv_block.pack_conv5x5_weights(w, b)
+    assert wp.shape == (c_out, 25 * c_in) and wp.dtype == torch.bfloat16 and wp.is_contiguous()
+    assert torch.equal(bp, b)
+    assert torch.equal(conv_block.unpack_conv5x5_weights(wp), w.to(torch.bfloat16))
+    c, ci, dy, dx = c_out - 3, c_in - 1, 3, 1
+    assert wp[c, (dy * 5 + dx) * c_in + ci] == w[c, ci, dy, dx].to(torch.bfloat16)
+
+
+def test_conv_kernel_checks_reject_bad_shapes():
+    """What the conv kernel takes: (c_out, 3200) K-major weights with c_out a
+    multiple of its 256-column tile; the earlier (3200, c_out) layout and a
+    128-wide c_out raise before any launch."""
+    x = torch.zeros((1, 12, 12, 128), dtype=torch.bfloat16)
+    wp, bp = conv_block.pack_conv5x5_weights(torch.zeros(512, 128, 5, 5), torch.zeros(512))
+    conv_block._check_conv(x, wp, bp)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        conv_block._check_conv(x, wp.T.contiguous(), bp)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        conv_block._check_conv(x, wp[:128].contiguous(), bp[:128].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        conv_block._check_conv(x, wp, bp.double())
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_conv_argmax_takes_the_first_slice_on_every_tie(device):
+    """Zero weights leave each output at its bias: the 128 groups' biases run
+    through every 4-tuple of {0, 1, 2} (all tie patterns across the kernel's
+    two lanes of 2 slices). Argmax mode picks torch.max's first maximum and
+    outputs its value, on the CPU (plain version) and on a card (kernel)."""
+    if device == "cuda":
+        _require_cuda()
+    vals = torch.cartesian_prod(*[torch.arange(3.0)] * 4)        # (81, 4)
+    vals = torch.cat([vals, vals[:128 - len(vals)]])             # (128, 4)
+    wp, bp = conv_block.pack_conv5x5_weights(torch.zeros(512, 128, 5, 5), vals.reshape(-1))
+    x = torch.randn(1, 20, 20, 128, generator=torch.Generator().manual_seed(0))
+    out, idx = conv_block.conv5x5_maxout_argmax(x.to(torch.bfloat16).to(device), wp.to(device),
+                                                bp.to(device))
+    ref_v, ref_w = vals.max(dim=1)
+    assert torch.equal(idx.cpu().long(), ref_w.expand(1, 20, 20, 128))
+    assert torch.equal(out.cpu().float(), ref_v.expand(1, 20, 20, 128))
+
+
 # ---------------------------------------------------------------- fused layers vs JAX
 
 def _jax_block(seed, width):
@@ -304,7 +352,8 @@ def _card_case(kind, batch, l, nres, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["conv", "gemm"])
-@pytest.mark.parametrize("l,nres", [(21, [21, 9]), (32, [5, 32])])
+@pytest.mark.parametrize("l,nres", [(21, [21, 9]), (32, [5, 32]), (40, [40, 17]),
+                                    (352, [350, 352])])
 def test_kernel_on_card(kind, l, nres):
     _require_cuda()
     args = _card_case(kind, 2, l, nres, seed=l)
@@ -331,6 +380,8 @@ def test_conv_block_wrappers_reject_bad_input_on_card():
         conv_block.conv5x5_maxout_stats(x.transpose(1, 2), w, b, nr)
     with pytest.raises(ValueError, match="128"):
         conv_block.conv5x5_maxout_stats(x[..., :64].contiguous(), w, b, nr)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        conv_block.conv5x5_maxout_stats(x, w[:128].contiguous(), b[:128].contiguous(), nr)
     x, w, b, nr = _card_case("gemm", 2, 12, [12, 4], seed=0)
     with pytest.raises(ValueError, match="multiple of 64"):
         conv_block.gemm_maxout_stats(x[..., :955].contiguous(), w, b, nr)

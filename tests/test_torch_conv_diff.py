@@ -168,7 +168,7 @@ def _card_case(batch, l, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("l", [21, 32])
+@pytest.mark.parametrize("l", [21, 32, 40])
 def test_argmax_kernel_on_card(l):
     _require_cuda()
     x, w, b = _card_case(2, l, seed=l)
@@ -185,7 +185,7 @@ def test_argmax_kernel_on_card(l):
     err = ((out.float() - ref.float()).abs() / (2.0 ** -7 * ref.float().abs().clamp(min=1.0)))
     assert err.max().item() <= 1.0
     # every index names a slice within one bf16 ulp of the plain maximum
-    wf = wp.float().view(5, 5, 128, 512).permute(3, 2, 0, 1)
+    wf = conv_block.unpack_conv5x5_weights(wp.float())
     pre = F.conv2d(x.float().permute(0, 3, 1, 2), wf, bp, padding=2).permute(0, 2, 3, 1)
     pre = pre.reshape(2, l, l, 128, 4)
     top = pre.amax(dim=-1)

@@ -80,6 +80,29 @@ def test_vgru_plain_single_target_padding(vgru_layers):
     np.testing.assert_allclose(ours, pallas, atol=GRU_TOL)
 
 
+@pytest.mark.parametrize("n_rows,n_cols,seed", [(24, 16, 2), (12, 13, 5), (9, 40, 3)])
+def test_vgru_plain_depth_zero_and_early_end(vgru_layers, n_rows, n_cols, seed):
+    """Edges of the column freeze: a column of depth 0 stays at the zero
+    state, tokens of class 22 give all-zero one-hots, and in one case every
+    column ends short of the last rows (the kernel's scan then stops at the
+    deepest column)."""
+    rng = np.random.default_rng(seed)
+    aln = rng.integers(0, 23, (n_rows, n_cols)).astype(np.int32)
+    valid = rng.integers(0, n_rows + 1, n_cols).astype(np.int32)
+    valid[0] = 0
+    if seed == 3:
+        valid = np.minimum(valid, n_rows - 2)
+    ours = vgru.vgru_final_cols(_torch_tree(vgru_layers), torch.from_numpy(aln),
+                                torch.from_numpy(valid)).numpy()
+    pallas = np.asarray(vgru_final_cols_pallas(vgru_layers, jnp.asarray(aln),
+                                               jnp.asarray(valid), interpret=True))
+    x = jnp.asarray(aln[..., None] == np.arange(22), jnp.float32)
+    scan = np.asarray(jax_gru.unigru_stack_final(vgru_layers, x, valid_len=jnp.asarray(valid)))
+    np.testing.assert_allclose(ours, pallas, atol=GRU_TOL)
+    np.testing.assert_allclose(ours, scan, atol=GRU_TOL)
+    np.testing.assert_array_equal(ours[0], 0.0)
+
+
 # ---------------------------------------------------------------- rgru
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -155,9 +178,10 @@ def test_refine_plain_padded_matches_unpadded():
     np.testing.assert_allclose(padded[:40], base, atol=1e-5)
 
 
-def test_cpu_wrappers_do_not_launch():
+def test_cpu_wrappers_do_not_launch(vgru_layers):
     before = (vgru.launches, rgru.launches, refine.launches)
     refine.refine_coords(torch.zeros(4, 3), 2, 4)
+    vgru.vgru_final(_torch_tree(vgru_layers), torch.zeros((5, 3), dtype=torch.int32), 5)
     assert (vgru.launches, rgru.launches, refine.launches) == before
 
 
@@ -192,18 +216,42 @@ def test_wrappers_reject_bad_input_on_card():
         refine.refine_coords(torch.zeros((4, 3), device=dev), 10, 5)
 
 @pytest.mark.gpu
-def test_vgru_kernel_on_card():
+@pytest.mark.parametrize("n_rows,n_cols", [(256, 88), (1024, 352)])
+def test_vgru_kernel_on_card(n_rows, n_cols):
     _require_cuda()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     layers = _torch_tree(_np_tree(jax_gru.unigru_stack_params(jax.random.PRNGKey(0), 2, 22, 512)))
     layers = [{k: v.to(dev) for k, v in p.items()} for p in layers]
-    aln = torch.from_numpy(rng.integers(0, 22, (256, 88)).astype(np.int32)).to(dev)
-    valid = torch.from_numpy(rng.integers(0, 257, 88).astype(np.int32)).to(dev)
+    aln = torch.from_numpy(rng.integers(0, 22, (n_rows, n_cols)).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.integers(0, n_rows + 1, n_cols).astype(np.int32)).to(dev)
+    before = vgru.launches
     out = vgru.vgru_final_cols(layers, aln, valid)
+    out2 = vgru.vgru_final_cols(layers, aln, valid)
     ref = vgru.vgru_final_cols_plain(layers, aln, valid)
     torch.cuda.synchronize()
+    assert vgru.launches == before + 2
     assert (out - ref).abs().max().item() <= 1e-4
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.gpu
+def test_vgru_launch_error_raises(monkeypatch):
+    """The wrapper turns the library's error code into an exception: here a
+    stub returns the code a refused cooperative launch gives. The kernel's
+    own co-residency check is not reached (an H100 holds all 128 blocks)."""
+    _require_cuda()
+    from dmpfold2_tpu_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    layers = [{k: torch.zeros(s, device=dev) for k, s in
+               (("wi", (22 if i == 0 else 64, 192)), ("wh", (64, 192)), ("bi", (192,)),
+                ("bh", (192,)))} for i in range(2)]
+    too_large = 720  # cudaErrorCooperativeLaunchTooLarge
+    monkeypatch.setattr(_build, "load", lambda name, entry=None: lambda *args: too_large)
+    with pytest.raises(RuntimeError):
+        vgru.vgru_final_cols(layers, torch.zeros((4, 8), dtype=torch.int32, device=dev),
+                             torch.full((8,), 4, dtype=torch.int32, device=dev))
 
 
 @pytest.mark.gpu
