@@ -12,9 +12,10 @@ Phases, each printing one JSON line:
    shared-memory and spill lines.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
    the shapes of the default fold of the bundled PF10963 example (and more:
-   vgru also at 1024 x 352 with ragged depths, the conv in both modes up to
-   L 352), each launched twice for the same bits, with the tolerance stated;
-   device times from torch.profiler or CUDA events after warm-up.
+   vgru also at 1024 x 352 with ragged depths, rgru's one-launch biGRU layer
+   also at B 5 with ragged lengths and at T 352, the conv in both modes up
+   to L 352), each launched twice for the same bits, with the tolerance
+   stated; device times from torch.profiler or CUDA events after warm-up.
 4. fold    -- ``aln_to_coords`` on PF10963 at full width (512/128/16, random
    weights from seed 0) with the defaults ``-n 10 -m 100`` on ``cuda``, once
    per engine (fp32, then bf16): a warm-up fold, then the timed fold with
@@ -82,10 +83,12 @@ WIDTH, CWIDTH, BLOCKS = 512, 128, 16
 ITERATIONS, MINSTEPS = 10, 100
 FOLD_REPEATS = 5  # timed folds per engine; the first is the one counted
 EXPECTED_LAUNCHES = {
-    "fp32": {"vgru": 1, "rgru": 70, "refine": 2, "conv5x5_maxout": 0, "gemm_maxout": 0,
+    "fp32": {"vgru": 1, "rgru": 35, "refine": 2, "conv5x5_maxout": 0, "gemm_maxout": 0,
              "conv5x5_maxout_diff": 0},
-    # 11 trunk passes: one input layer and 16 block convs each
-    "bf16": {"vgru": 1, "rgru": 70, "refine": 2, "conv5x5_maxout": 176, "gemm_maxout": 11,
+    # rgru: one launch per biGRU layer (both directions), hgru's 2 layers and
+# coord_gru's 3 in each of 11 trunk passes: 2 + 11 * 3. 11 trunk passes: one
+# input layer and 16 block convs each
+    "bf16": {"vgru": 1, "rgru": 35, "refine": 2, "conv5x5_maxout": 176, "gemm_maxout": 11,
              "conv5x5_maxout_diff": 0},
 }
 GRU_TOL = 1e-4     # fp32, sums in another order than cuBLAS over 512/256 terms
@@ -103,6 +106,9 @@ TRUNK_CASES = ((1, L_PAD, [NRES]), (3, L_PAD, [88, 61, 5]), (2, 53, [53, 20]))
 # (5 x 3, a persistent grid of fewer blocks than SMs) and the training crop's
 # bucket
 DIFF_CASES = TRUNK_CASES + ((2, 40, [40, 17]), (1, 352, [350]))
+# rgru: (T, valid lengths per column): the main path's layer, a ragged batch
+# with a zero length, the training crop's bucket
+RGRU_CASES = ((L_PAD, [NRES]), (L_PAD, [88, 61, 1, 82, 0]), (352, [350]))
 # vgru beyond PF10963: a deep, wide alignment (bucketed long targets) with
 # ragged per-column depths, several column chunks per block
 VGRU_WIDE = (1024, 352)
@@ -127,13 +133,14 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, fragment: str, reps: int) -> float:
-    """Mean device milliseconds per launch of the kernels whose name holds
-    ``fragment``, from torch.profiler over ``reps`` calls after warm-up. Unlike
-    CUDA events around back-to-back calls, this leaves out the host time of a
-    wrapper whose kernel is shorter than its Python. The profiler can lose
-    activity records (an H100 run once reported 39 of 50 launches), so a
-    profile whose count is not ``reps`` is taken again, up to three times."""
+def device_ms(fn, fragment: str, reps: int, per_call: int = 1) -> float:
+    """Mean device milliseconds per call of ``fn`` in the kernels whose name
+    holds ``fragment``, from torch.profiler over ``reps`` calls after warm-up;
+    each call launches ``per_call`` of them. Unlike CUDA events around
+    back-to-back calls, this leaves out the host time of a wrapper whose
+    kernel is shorter than its Python. The profiler can lose activity records
+    (an H100 run once reported 39 of 50 launches), so a profile whose count
+    is not ``reps * per_call`` is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -151,10 +158,11 @@ def device_ms(fn, fragment: str, reps: int) -> float:
                 us = getattr(evt, "self_device_time_total", None)
                 total += us if us is not None else getattr(evt, "self_cuda_time_total", 0.0)
                 count += evt.count
-        if count == reps:
-            return total / count / 1e3
+        if count == reps * per_call:
+            return total / reps / 1e3
         counts.append(count)
-    raise AssertionError(f"profiler saw {counts} launches of {fragment}, expected {reps}")
+    raise AssertionError(f"profiler saw {counts} launches of {fragment}, expected "
+                         f"{reps * per_call}")
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -247,42 +255,71 @@ def phase_kernels(params) -> dict:
                     "library": "torch.nn.GRU(22, 512, num_layers=2) on rows [0, 252)",
                     "library_max_abs_err": lib_err}
 
-    # ---- rgru: T = 88, H = 256, B = 1 (main path) and B = 5, both directions
+    # ---- rgru: T = 88, H = 256, B = 1 (main path), B = 5 ragged with a zero
+    # length, T = 352; both directions of a layer in one launch (gru_seq_bidir,
+    # the fold's path), each case launched twice for the same bits, and the
+    # one-direction gru_seq
     hid = WIDTH // 2
-    p = {k: v.to(dev) for k, v in params["coord_gru"][0]["fwd"].items()}
+    layer = {d: {k: v.to(dev) for k, v in params["coord_gru"][0][d].items()}
+             for d in ("fwd", "bwd")}
     err = 0.0
-    for batch, valid_np in ((1, [NRES]), (5, [88, 61, 1, 82, 30])):
-        xproj = torch.from_numpy(rng.normal(size=(L_PAD, batch, 3 * hid)).astype(np.float32)).to(dev)
+    for seq_len, valid_np in RGRU_CASES:
+        batch = len(valid_np)
+        xf, xb = (torch.from_numpy(rng.normal(size=(seq_len, batch, 3 * hid)).astype(np.float32))
+                  .to(dev) for _ in range(2))
         valid = torch.tensor(valid_np, dtype=torch.int32, device=dev)
-        for reverse in (False, True):
-            out = rgru.gru_seq(p["wh"], p["bh"], xproj, valid, reverse=reverse)
-            ref = rgru.gru_seq_plain(p["wh"], p["bh"], xproj, valid, reverse=reverse)
-            e = (out - ref).abs().max().item()
+        out = rgru.gru_seq_bidir(layer["fwd"], layer["bwd"], xf, xb, valid)
+        out2 = rgru.gru_seq_bidir(layer["fwd"], layer["bwd"], xf, xb, valid)
+        ref = rgru.gru_seq_bidir_plain(layer["fwd"], layer["bwd"], xf, xb, valid)
+        e = (out - ref).abs().max().item()
+        same = bool(torch.equal(out, out2))
+        err = max(err, e)
+        cases.append({"kernel": "rgru", "case": f"bidir T={seq_len} B={batch}",
+                      "shape": [seq_len, batch, 2 * hid], "valid": valid_np, "max_abs_err": e,
+                      "tol": GRU_TOL, "second_launch_identical": same,
+                      "ok": e <= GRU_TOL and same})
+        for d, x, reverse in (("fwd", xf, False), ("bwd", xb, True)):
+            one = rgru.gru_seq(layer[d]["wh"], layer[d]["bh"], x, valid, reverse=reverse)
+            e = (one - ref[..., hid:] if reverse else one - ref[..., :hid]).abs().max().item()
             err = max(err, e)
-            cases.append({"kernel": "rgru", "case": f"B={batch} reverse={reverse}",
-                          "shape": [L_PAD, batch, hid], "valid": valid_np, "max_abs_err": e})
-    xproj = torch.from_numpy(rng.normal(size=(L_PAD, 1, 3 * hid)).astype(np.float32)).to(dev)
+            cases.append({"kernel": "rgru", "case": f"gru_seq T={seq_len} B={batch} "
+                          f"reverse={reverse}", "valid": valid_np, "max_abs_err": e,
+                          "tol": GRU_TOL, "ok": e <= GRU_TOL})
+    # timing: one layer of the main path (both directions), 82 valid steps
+    xf, xb = (torch.from_numpy(rng.normal(size=(L_PAD, 1, 3 * hid)).astype(np.float32)).to(dev)
+              for _ in range(2))
     valid = torch.tensor([NRES], dtype=torch.int32, device=dev)
-    ms = time_ms(lambda: rgru.gru_seq(p["wh"], p["bh"], xproj, valid), reps=50)
-    plain_ms = time_ms(lambda: rgru.gru_seq_plain(p["wh"], p["bh"], xproj, valid), reps=5)
-    lib = torch.nn.GRU(3 * hid, hid).to(dev)
+
+    def bidir():
+        return rgru.gru_seq_bidir(layer["fwd"], layer["bwd"], xf, xb, valid)
+
+    ms = device_ms(bidir, "rgru", reps=50)
+    call_ms = time_ms(bidir, reps=50)
+    plain_ms = time_ms(lambda: rgru.gru_seq_bidir_plain(layer["fwd"], layer["bwd"], xf, xb,
+                                                        valid), reps=3)
+    lib = torch.nn.GRU(3 * hid, hid, bidirectional=True).to(dev)
     with torch.no_grad():
-        lib.weight_ih_l0.copy_(torch.eye(3 * hid, device=dev))
-        lib.bias_ih_l0.zero_()
-        lib.weight_hh_l0.copy_(p["wh"].T)
-        lib.bias_hh_l0.copy_(p["bh"])
+        for suffix, d in (("", "fwd"), ("_reverse", "bwd")):
+            getattr(lib, f"weight_ih_l0{suffix}").copy_(torch.eye(3 * hid, device=dev))
+            getattr(lib, f"bias_ih_l0{suffix}").zero_()
+            getattr(lib, f"weight_hh_l0{suffix}").copy_(layer[d]["wh"].T)
+            getattr(lib, f"bias_hh_l0{suffix}").copy_(layer[d]["bh"])
         full = torch.tensor([L_PAD], dtype=torch.int32, device=dev)
-        lib_err = (lib(xproj)[0] - rgru.gru_seq(p["wh"], p["bh"], xproj, full)).abs().max().item()
-        library_ms = time_ms(lambda: lib(xproj), reps=50)
-    flops = 2 * hid * 3 * hid * NRES
-    nbytes = 4 * (xproj.numel() + hid * 3 * hid + 3 * hid + 1 + L_PAD * hid)
+        lib_err = (lib(xf)[0][..., :hid]
+                   - rgru.gru_seq(layer["fwd"]["wh"], layer["fwd"]["bh"], xf, full)).abs().max().item()
+        library_ms = time_ms(lambda: lib(xf), reps=50)
+    flops = 2 * (2 * hid * 3 * hid * NRES)
+    nbytes = 2 * 4 * (xf.numel() + hid * 3 * hid + 3 * hid + L_PAD * hid) + 4
     b, by = bound_ms(flops, nbytes)
     rows["rgru"] = {"name": "rgru", "route": "cuda", "source": "dmpfold2_tpu_torch/csrc/rgru.cu",
                     "replaces": "dmpfold2_tpu/kernels/rgru.py:75", "max_abs_err": err,
-                    "tol": GRU_TOL, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                    "tol": GRU_TOL, "ms": ms, "device_ms": ms, "call_ms": call_ms,
+                    "us_per_step": ms * 1e3 / NRES, "plain_ms": plain_ms, "bound_ms": b,
                     "bound_by": by, "library_ms": library_ms,
-                    "library": "torch.nn.GRU(768, 256) with W_ih = I, b_ih = 0, on xproj, "
-                               "valid = T", "library_max_abs_err": lib_err}
+                    "shape": "one biGRU layer, both directions: T 88, B 1, H 256, 82 valid",
+                    "library": "torch.nn.GRU(768, 256, bidirectional=True) (cuDNN) with W_ih = "
+                               "I, b_ih = 0, on xproj_f (both directions read it), valid = T",
+                    "library_max_abs_err": lib_err}
 
     # ---- refine: L = 88 with nres = 82 (main path) and L = 1536, 100 steps
     err = 0.0
@@ -344,7 +381,7 @@ def _trunk_kernels(params, rng, cases) -> dict:
 
     def inputs(kind, batch, l, nres):
         c_in = kinds[kind][4]
-        x = torch.zeros((batch, l, l, kinds[kind][2].shape[0] if kind == "gemm_maxout" else c_in))
+        x = torch.zeros((batch, l, l, kinds[kind][2].shape[1] if kind == "gemm_maxout" else c_in))
         valid = (torch.arange(l)[None, :] < torch.tensor(nres)[:, None]).float()
         x[..., :c_in] = (torch.from_numpy(rng.normal(size=(batch, l, l, c_in)).astype(np.float32))
                          * valid[:, :, None, None] * valid[:, None, :, None])
@@ -390,7 +427,8 @@ def _trunk_kernels(params, rng, cases) -> dict:
             flops = 2.0 * npix * GEMM_K_IN * c_out
             nbytes = 2 * (x.numel() + w.numel() + npix * c_out // 3) + 4 * (c_out + 1 + 2 * c_out // 3)
             x2d = x.view(npix, k_pad)
-            library_ms = time_ms(lambda: torch.matmul(x2d, w), reps=50)
+            w_lib = w.T  # (k_pad, c_out), a transposed view: cuBLAS reads it as it is
+            library_ms = time_ms(lambda: torch.matmul(x2d, w_lib), reps=50)
             library = ("torch.matmul bf16 (cuBLAS): (7744, 960) x (960, 384) only, without "
                        "bias, maxout or statistics; computes less than the kernel")
         bound, by = bound_ms(flops, nbytes, PEAK_BF16_TENSOR)
@@ -637,7 +675,7 @@ def phase_fold(params, precision: str) -> tuple[dict, tuple]:
 
 # kernel-name fragments -> category, first match wins
 PROFILE_CATEGORIES = (
-    ("vgru", ("vgru_kernel",)), ("rgru", ("rgru_kernel",)), ("refine", ("refine_kernel",)),
+    ("vgru", ("vgru_kernel",)), ("rgru", ("rgru",)), ("refine", ("refine_kernel",)),
     ("conv5x5_maxout", ("conv5x5_maxout_kernel",)), ("gemm_maxout", ("gemm_maxout_kernel",)),
     # cuDNN convolutions ("fprop"); cuBLAS's sm80_xmma_gemm kernels are GEMMs
     ("conv", ("convolution", "fprop", "cudnn", "implicit", "winograd", "fft")),

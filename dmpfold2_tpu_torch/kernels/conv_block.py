@@ -8,7 +8,9 @@ Replaces three TPU kernels of ``dmpfold2_tpu/kernels/conv_block.py``:
     mode (the bf16 engine, :func:`conv5x5_maxout_stats`) and in argmax mode
     (bf16 training, :func:`conv5x5_maxout_argmax`);
   * ``gemm_maxout`` (``csrc/gemm_maxout.cu``): the input layer, a 1x1 conv
-    (a GEMM) 955 -> 384 + bias + maxout over 3 slices, stats mode;
+    (a GEMM) 955 -> 384 + bias + maxout over 3 slices, stats mode, with TMA
+    loads and wgmma products of a 128-pixel by 192-column tile whose weights
+    :func:`pack_gemm_weights` packs K-major and slice-major;
   * ``conv5x5_maxout_diff``, the custom VJP around the argmax mode:
     :class:`Conv5x5MaxoutDiff`.
 
@@ -45,7 +47,7 @@ GEMM_POOL = 3
 CONV_C_IN = 128       # the conv kernel's input width
 CONV_N_TILE = 256     # conv output columns per work item: 64 whole groups of 4
 CONV_TILE = (8, 16)   # conv pixels per work item: an 8 x 16 patch
-GEMM_N_TILE = 96      # GEMM output columns per block: 32 whole groups of 3
+GEMM_N_TILE = 192     # GEMM output columns per block: 64 whole groups of 3
 GEMM_K_ALIGN = 64     # the GEMM's K step; K is padded to a multiple upstream
 GEMM_TILE_M = 128     # GEMM pixels per block
 
@@ -79,13 +81,40 @@ def unpack_conv5x5_weights(w_packed: torch.Tensor) -> torch.Tensor:
     return w_packed.view(c_out, KSIZE, KSIZE, c_in).permute(0, 3, 1, 2)
 
 
+def gemm_pack_order(c_out: int) -> torch.Tensor:
+    """The torch channel of each packed row: within each N tile of
+    ``GEMM_N_TILE`` rows (the last may be narrower), the tile's groups slice
+    by slice, so packed row ``p * n + g`` of a tile of n groups starting at
+    group g0 is channel ``(g0 + g) * 3 + p`` (the JAX kernel's
+    ``_perm_indices`` within a tile)."""
+    groups, per_tile = c_out // GEMM_POOL, GEMM_N_TILE // GEMM_POOL
+    order = []
+    for g0 in range(0, groups, per_tile):
+        n = min(per_tile, groups - g0)
+        order += [(g0 + g) * GEMM_POOL + p for p in range(GEMM_POOL) for g in range(n)]
+    return torch.tensor(order, dtype=torch.long)
+
+
 def pack_gemm_weights(w: torch.Tensor, b: torch.Tensor, k_pad: int):
-    """OIHW (c_out, c_in, 1, 1) fp32 -> ((k_pad, c_out) bf16, rows >= c_in zero;
-    (c_out,) fp32). Column c in torch order."""
+    """OIHW (c_out, c_in, 1, 1) fp32 -> ((c_out, k_pad) bf16, (c_out,) fp32).
+
+    K-major (a row's K contiguous, columns >= c_in zero), rows and biases in
+    :func:`gemm_pack_order`: the layout the kernel's TMA loads and wgmma
+    reads, with a group's three pool slices ``GEMM_N_TILE / 3`` rows apart in
+    one tile.
+    """
     c_out, c_in = w.shape[:2]
-    packed = torch.zeros((k_pad, c_out), dtype=torch.bfloat16, device=w.device)
-    packed[:c_in] = w.reshape(c_out, c_in).T
-    return packed, b.to(torch.float32).contiguous()
+    order = gemm_pack_order(c_out).to(w.device)
+    packed = torch.zeros((c_out, k_pad), dtype=torch.bfloat16, device=w.device)
+    packed[:, :c_in] = w.reshape(c_out, c_in)[order]
+    return packed, b.to(torch.float32)[order].contiguous()
+
+
+def unpack_gemm_weights(w_packed: torch.Tensor, b_packed: torch.Tensor):
+    """The packed weights and biases back in torch channel order: ((c_out,
+    k_pad), (c_out,)), in the packed dtypes."""
+    inverse = torch.argsort(gemm_pack_order(w_packed.shape[0])).to(w_packed.device)
+    return w_packed[inverse], b_packed[inverse]
 
 
 def _masked_sums(y: torch.Tensor, nres: torch.Tensor):
@@ -118,9 +147,10 @@ def gemm_maxout_stats_plain(x: torch.Tensor, w_packed: torch.Tensor,
     """Plain version of :func:`gemm_maxout_stats`: an fp32 matmul on the
     bf16-rounded operands, bias, maxout, masked sums."""
     batch, l_rows, l_cols, k_pad = x.shape
-    c_out = w_packed.shape[1]
+    c_out = w_packed.shape[0]
+    w, b = unpack_gemm_weights(w_packed.to(torch.bfloat16), b_packed.float())
     xf = x.to(torch.bfloat16).float().reshape(-1, k_pad)
-    y = xf @ w_packed.to(torch.bfloat16).float() + b_packed.float()
+    y = xf @ w.float().T + b
     y = y.view(batch, l_rows, l_cols, c_out // GEMM_POOL, GEMM_POOL).amax(dim=4)
     s, ss = _masked_sums(y, nres)
     return y.to(torch.bfloat16), s, ss
@@ -316,7 +346,7 @@ def gemm_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.T
     """Fused 1x1 conv (GEMM) + bias + maxout(3) + masked sums, NHWC.
 
     x (B, L, L, k_pad) bf16 with k_pad a multiple of 64, channels past the
-    layer's inputs zero; w_packed (k_pad, c_out) bf16 and b_packed (c_out,)
+    layer's inputs zero; w_packed (c_out, k_pad) bf16 and b_packed (c_out,)
     fp32 from :func:`pack_gemm_weights`; nres (B,) int32 ->
     (out (B, L, L, c_out / 3) bf16, sum (B, c_out / 3), sumsq (B, c_out / 3)).
     """
@@ -327,13 +357,13 @@ def gemm_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.T
         raise ValueError(f"gemm_maxout: x must be (B, L, L, k_pad) with k_pad a multiple of "
                          f"{GEMM_K_ALIGN}; got {tuple(x.shape)}")
     batch, l_rows, _, k_pad = x.shape
-    c_out = w_packed.shape[-1]
+    c_out = w_packed.shape[0]
     if c_out <= 0 or c_out % GEMM_N_TILE or batch > 65535:
         raise ValueError(f"gemm_maxout: c_out must be a multiple of {GEMM_N_TILE} and "
                          f"B <= 65535; got c_out {c_out}, B {batch}")
     dev = x.device
     _check("gemm_maxout: x", x, torch.bfloat16, x.shape, dev)
-    _check("gemm_maxout: w_packed", w_packed, torch.bfloat16, (k_pad, c_out), dev)
+    _check("gemm_maxout: w_packed", w_packed, torch.bfloat16, (c_out, k_pad), dev)
     _check("gemm_maxout: b_packed", b_packed, torch.float32, (c_out,), dev)
     _check("gemm_maxout: nres", nres, torch.int32, (batch,), dev)
     tiles = -(-(l_rows * l_rows) // GEMM_TILE_M)

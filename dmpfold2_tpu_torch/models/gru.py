@@ -10,9 +10,9 @@ step sees a fresh zero state as an unpadded reverse scan would.
 
 These are the plain versions. The fold reaches the hand-written kernels
 through ``kernels/rgru.py`` (whose biGRU stack, as the JAX package's
-``kernels/rgru.py:bigru_stack_pallas``, is :func:`bigru_stack` with the
-kernel's recurrence) and ``kernels/vgru.py``; those run the functions here
-only for CPU tensors.
+``kernels/rgru.py:bigru_stack_pallas``, is :func:`bigru_stack` with both
+directions of a layer in one kernel launch) and ``kernels/vgru.py``; those
+run the functions here only for CPU tensors.
 Training runs the functions here on every device, differentiated by autograd,
 as the JAX training path runs its scans (the kernels have no backward).
 """
@@ -92,15 +92,12 @@ def gru_scan_projected(wh: torch.Tensor, bh: torch.Tensor, xproj: torch.Tensor,
 
 
 def bigru_stack(layers, x: torch.Tensor, valid_len, *, dropout_rate: float = 0.0,
-                seed: int | None = None, scan=gru_scan_projected) -> torch.Tensor:
-    """Multi-layer biGRU (T, B, C) -> (T, B, 2H), the JAX ``gru.bigru_stack``.
+                seed: int | None = None) -> torch.Tensor:
+    """Multi-layer biGRU (T, B, C) -> (T, B, 2H), the JAX ``gru.bigru_stack``,
+    differentiable (training; the fold's stack is ``kernels/rgru.py``'s).
 
-    ``scan``: the recurrence of one layer-direction, with
-    :func:`gru_scan_projected`'s signature; this differentiable one by
-    default (training), the CUDA kernel's wrapper for the fold
-    (``kernels/rgru.py``). With a ``seed``, dropout of ``dropout_rate``
-    follows every layer but the last (torch's semantics), its mask drawn from
-    ``fold_in(seed, layer)``.
+    With a ``seed``, dropout of ``dropout_rate`` follows every layer but the
+    last (torch's semantics), its mask drawn from ``fold_in(seed, layer)``.
     """
     out = x
     for layer_idx, layer in enumerate(layers):
@@ -108,7 +105,8 @@ def bigru_stack(layers, x: torch.Tensor, valid_len, *, dropout_rate: float = 0.0
         for direction, reverse in (("fwd", False), ("bwd", True)):
             p = layer[direction]
             xproj = torch.matmul(out, p["wi"]) + p["bi"]
-            passes.append(scan(p["wh"], p["bh"], xproj, valid_len, reverse=reverse))
+            passes.append(gru_scan_projected(p["wh"], p["bh"], xproj, valid_len,
+                                             reverse=reverse))
         out = torch.cat(passes, dim=-1)
         if seed is not None and dropout_rate > 0.0 and layer_idx < len(layers) - 1:
             out = dropout(out, dropout_rate, fold_in(seed, layer_idx))

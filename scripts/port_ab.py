@@ -12,6 +12,11 @@ package from its tree, builds that tree's kernels into its own
   (depth 252), of conv5x5_maxout in stats mode at B 1, L 88 (nres 82) and in
   argmax mode at L 88 and L 352, and the conv wrapper's call time (CUDA
   events around back-to-back calls);
+* the device time of one residue biGRU layer (rgru, T 88, B 1, H 256, 82
+  valid steps, both directions): one ``gru_seq_bidir`` launch where the tree
+  has it, else two ``gru_seq`` launches, one per direction, summed;
+* the device time of gemm_maxout at B 1, L 88 (nres 82), the trunk's input
+  layer with the tree's own weight packing;
 * the fp32 and bf16 default folds of PF10963 (``chip_smoke.phase_fold``: five
   timed folds, exact launch counts) and their device time by category
   (``chip_smoke.phase_profile``).
@@ -47,7 +52,7 @@ def measure(tree: str) -> dict:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from dmpfold2_tpu_torch.engine.fold import use_full_fp32
-    from dmpfold2_tpu_torch.kernels import _build, conv_block, vgru
+    from dmpfold2_tpu_torch.kernels import _build, conv_block, rgru, vgru
     from dmpfold2_tpu_torch.models.gruresnet import init_params
 
     assert os.path.dirname(os.path.dirname(vgru.__file__)).startswith(os.path.abspath(tree))
@@ -63,6 +68,35 @@ def measure(tree: str) -> dict:
     depth = torch.full((cs.L_PAD,), cs.NSEQS, dtype=torch.int32, device=dev)
     res["vgru_ms"] = cs.device_ms(lambda: vgru.vgru_final_cols(layers, aln, depth),
                                   "vgru_kernel", reps=10)
+
+    hid = cs.WIDTH // 2
+    layer = {d: {k: v.to(dev) for k, v in params["coord_gru"][0][d].items()}
+             for d in ("fwd", "bwd")}
+    xf, xb = (torch.from_numpy(rng.normal(size=(cs.L_PAD, 1, 3 * hid)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    valid = torch.tensor([cs.NRES], dtype=torch.int32, device=dev)
+    if hasattr(rgru, "gru_seq_bidir"):
+        res["rgru_layer_ms"] = cs.device_ms(
+            lambda: rgru.gru_seq_bidir(layer["fwd"], layer["bwd"], xf, xb, valid), "rgru",
+            reps=50)
+    else:  # a tree from before the one-launch biGRU layer: a launch per direction
+        for counts in cs.EXPECTED_LAUNCHES.values():
+            counts["rgru"] = 70
+        res["rgru_layer_ms"] = cs.device_ms(
+            lambda: (rgru.gru_seq(layer["fwd"]["wh"], layer["fwd"]["bh"], xf, valid),
+                     rgru.gru_seq(layer["bwd"]["wh"], layer["bwd"]["bh"], xb, valid,
+                                  reverse=True)), "rgru", reps=50, per_call=2)
+
+    k_pad = conv_block.gemm_k_pad(cs.GEMM_K_IN)
+    gw, gb = conv_block.pack_gemm_weights(params["trunk"]["input"]["w"].to(dev),
+                                          params["trunk"]["input"]["b"].to(dev), k_pad)
+    xg = torch.zeros((1, cs.L_PAD, cs.L_PAD, k_pad))
+    xg[..., :cs.GEMM_K_IN] = torch.from_numpy(
+        rng.normal(size=(1, cs.L_PAD, cs.L_PAD, cs.GEMM_K_IN)).astype(np.float32))
+    xg = xg.to(torch.bfloat16).to(dev)
+    nr = torch.tensor([cs.NRES], dtype=torch.int32, device=dev)
+    res["gemm_ms"] = cs.device_ms(lambda: conv_block.gemm_maxout_stats(xg, gw, gb, nr),
+                                  "gemm_maxout_kernel", reps=50)
 
     mx = params["trunk"]["blocks"][0]["maxout"]
     wp, bp = conv_block.pack_conv5x5_weights(mx["w"].to(dev), mx["b"].to(dev))
@@ -108,10 +142,12 @@ def main() -> None:
     trees = {"A": os.path.abspath(args.other), "B": os.path.abspath(args.this)}
     turns = []
     for label in "ABBA":
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), args.other,
-                              "--turn", trees[label]],
-                             capture_output=True, text=True, check=True).stdout
-        row = json.loads(out.strip().splitlines()[-1])
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), args.other,
+                               "--turn", trees[label]], capture_output=True, text=True)
+        if proc.returncode:
+            sys.stderr.write(proc.stderr)
+            raise SystemExit(f"turn {label} ({trees[label]}) exited {proc.returncode}")
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
         row["label"] = label
         print(json.dumps(row), flush=True)
         turns.append(row)
@@ -119,8 +155,8 @@ def main() -> None:
     for label, tree in trees.items():
         mine = [t for t in turns if t["label"] == label]
         summary[label] = {"tree": tree}
-        for key in ("vgru_ms", "conv_stats_ms", "conv_stats_call_ms", "conv_argmax_ms_L88",
-                    "conv_argmax_ms_L352"):
+        for key in ("vgru_ms", "rgru_layer_ms", "gemm_ms", "conv_stats_ms", "conv_stats_call_ms",
+                    "conv_argmax_ms_L88", "conv_argmax_ms_L352"):
             summary[label][key] = sorted(t[key] for t in mine)
         for precision in ("fp32", "bf16"):
             summary[label][f"fold_{precision}_wall_s_median"] = sorted(

@@ -119,6 +119,27 @@ def test_conv_packing_round_trips(c_in, c_out):
     assert wp[c, (dy * 5 + dx) * c_in + ci] == w[c, ci, dy, dx].to(torch.bfloat16)
 
 
+@pytest.mark.parametrize("c_in,c_out", [(19, 96), (955, 384)])
+def test_gemm_packing_round_trips(c_in, c_out):
+    """The GEMM kernel's packing: K-major (c_out, k_pad), zero past c_in, rows
+    and biases slice-major within each 192-row tile; unpacking gives back the
+    bf16-rounded weights and the biases in torch channel order."""
+    g = torch.Generator().manual_seed(c_out)
+    w, b = torch.randn(c_out, c_in, 1, 1, generator=g), torch.randn(c_out, generator=g)
+    k_pad = conv_block.gemm_k_pad(c_in)
+    wp, bp = conv_block.pack_gemm_weights(w, b, k_pad)
+    assert wp.shape == (c_out, k_pad) and wp.dtype == torch.bfloat16 and wp.is_contiguous()
+    assert torch.all(wp[:, c_in:] == 0)
+    wu, bu = conv_block.unpack_gemm_weights(wp, bp)
+    assert torch.equal(wu[:, :c_in], w.reshape(c_out, c_in).to(torch.bfloat16))
+    assert torch.equal(bu, b)
+    tile, p, grp = c_out // 192 - 1 if c_out >= 192 else 0, 2, 5
+    n = min(64, c_out // 3)  # groups in a tile
+    row = tile * 192 + p * n + grp
+    assert torch.equal(wp[row, :c_in], w[(tile * 64 + grp) * 3 + p, :, 0, 0].to(torch.bfloat16))
+    assert bp[row] == b[(tile * 64 + grp) * 3 + p]
+
+
 def test_conv_kernel_checks_reject_bad_shapes():
     """What the conv kernel takes: (c_out, 3200) K-major weights with c_out a
     multiple of its 256-column tile; the earlier (3200, c_out) layout and a
@@ -344,7 +365,7 @@ def _card_case(kind, batch, l, nres, seed):
         w, b = conv_block.pack_gemm_weights(torch.randn(c_out, c_in, 1, 1, generator=g) * 0.03,
                                             torch.randn(c_out, generator=g) * 0.1,
                                             conv_block.gemm_k_pad(c_in))
-    x = torch.zeros((batch, l, l, w.shape[0] if kind == "gemm" else c_in))
+    x = torch.zeros((batch, l, l, w.shape[1] if kind == "gemm" else c_in))
     x[..., :c_in] = torch.randn(batch, l, l, c_in, generator=g)
     nr = torch.tensor(nres, dtype=torch.int32)
     return (x.to(torch.bfloat16).to(dev), w.to(dev), b.to(dev), nr.to(dev))
@@ -353,10 +374,11 @@ def _card_case(kind, batch, l, nres, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["conv", "gemm"])
 @pytest.mark.parametrize("l,nres", [(21, [21, 9]), (32, [5, 32]), (40, [40, 17]),
-                                    (352, [350, 352])])
+                                    (352, [350, 352]), (88, [82]), (88, [88, 61, 5])])
 def test_kernel_on_card(kind, l, nres):
+    """B = len(nres): the main path's B 1, L 88 and ragged batches."""
     _require_cuda()
-    args = _card_case(kind, 2, l, nres, seed=l)
+    args = _card_case(kind, len(nres), l, nres, seed=l)
     kernel = conv_block.conv5x5_maxout_stats if kind == "conv" else conv_block.gemm_maxout_stats
     plain = (conv_block.conv5x5_maxout_stats_plain if kind == "conv"
              else conv_block.gemm_maxout_stats_plain)
@@ -385,5 +407,7 @@ def test_conv_block_wrappers_reject_bad_input_on_card():
     x, w, b, nr = _card_case("gemm", 2, 12, [12, 4], seed=0)
     with pytest.raises(ValueError, match="multiple of 64"):
         conv_block.gemm_maxout_stats(x[..., :955].contiguous(), w, b, nr)
-    with pytest.raises(ValueError, match="multiple of 96"):
-        conv_block.gemm_maxout_stats(x, w[:, :192 + 32].contiguous(), b[:224].contiguous(), nr)
+    with pytest.raises(ValueError, match="multiple of 192"):
+        conv_block.gemm_maxout_stats(x, w[:192 + 96].contiguous(), b[:288].contiguous(), nr)
+    with pytest.raises(ValueError, match="w_packed"):  # the earlier (k_pad, c_out) layout
+        conv_block.gemm_maxout_stats(x, w.T.contiguous(), b, nr)

@@ -137,6 +137,58 @@ def test_rgru_stack_matches_scan_and_pallas():
     np.testing.assert_allclose(ours.numpy(), pallas, atol=GRU_TOL)
 
 
+@pytest.mark.parametrize("hidden", [16, 32])
+def test_rgru_bidir_plain_matches_pallas(hidden):
+    """Both directions of one layer (gru_seq_bidir, here its plain version)
+    against the Pallas stack and the Pallas layer-direction kernel, at a
+    ragged batch with a zero length."""
+    rng = np.random.default_rng(hidden)
+    t_len, c_in = 13, 6
+    valid = np.asarray([13, 9, 1, 0, 5], np.int32)
+    stack = _np_tree(jax_gru.bigru_stack_params(jax.random.PRNGKey(hidden), 1, c_in, hidden))
+    x = rng.normal(size=(t_len, len(valid), c_in)).astype(np.float32)
+    fwd, bwd = stack[0]["fwd"], stack[0]["bwd"]
+    xf, xb = (x @ p["wi"] + p["bi"] for p in (fwd, bwd))
+    before = rgru.launches
+    ours = rgru.gru_seq_bidir(_torch_tree(fwd), _torch_tree(bwd), torch.from_numpy(xf),
+                              torch.from_numpy(xb), torch.from_numpy(valid)).numpy()
+    assert rgru.launches == before and ours.shape == (t_len, len(valid), 2 * hidden)
+    pallas_stack = np.asarray(bigru_stack_pallas(stack, jnp.asarray(x), jnp.asarray(valid),
+                                                 interpret=True))
+    pallas_dirs = np.concatenate(
+        [np.asarray(gru_seq_pallas(p["wh"], p["bh"], jnp.asarray(xp), jnp.asarray(valid),
+                                   reverse=rev, interpret=True))
+         for p, xp, rev in ((fwd, xf, False), (bwd, xb, True))], axis=-1)
+    np.testing.assert_allclose(ours, pallas_stack, atol=GRU_TOL)
+    np.testing.assert_allclose(ours, pallas_dirs, atol=GRU_TOL)
+    assert np.all(ours[:, 3] == 0)  # the zero-length column
+
+
+def test_rgru_stack_one_launch_per_layer(monkeypatch):
+    """The fold's stack makes one gru_seq_bidir call (one launch on a card)
+    per layer and no one-direction call, and equals the training stack."""
+    from dmpfold2_tpu_torch.models import gru as torch_gru
+
+    stack = _torch_tree(_np_tree(jax_gru.bigru_stack_params(jax.random.PRNGKey(6), 3, 10, 16)))
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(11, 2, 10)).astype(np.float32))
+    valid = torch.tensor([11, 4], dtype=torch.int32)
+    calls = []
+    bidir = rgru.gru_seq_bidir
+
+    def counting(*args):
+        calls.append(args[2].shape)
+        return bidir(*args)
+
+    def one_direction(*args, **kw):
+        raise AssertionError("the stack launched one direction alone")
+
+    monkeypatch.setattr(rgru, "gru_seq_bidir", counting)
+    monkeypatch.setattr(rgru, "gru_seq", one_direction)
+    ours = rgru.bigru_stack(stack, x, valid)
+    assert len(calls) == 3
+    np.testing.assert_array_equal(ours.numpy(), torch_gru.bigru_stack(stack, x, valid).numpy())
+
+
 def test_rgru_scalar_valid_single_target():
     stack = _np_tree(jax_gru.bigru_stack_params(jax.random.PRNGKey(4), 2, 12, 16))
     x = np.array(jax.random.normal(jax.random.PRNGKey(5), (19, 1, 12), jnp.float32))
@@ -182,6 +234,8 @@ def test_cpu_wrappers_do_not_launch(vgru_layers):
     before = (vgru.launches, rgru.launches, refine.launches)
     refine.refine_coords(torch.zeros(4, 3), 2, 4)
     vgru.vgru_final(_torch_tree(vgru_layers), torch.zeros((5, 3), dtype=torch.int32), 5)
+    stack = _torch_tree(_np_tree(jax_gru.bigru_stack_params(jax.random.PRNGKey(0), 1, 4, 16)))
+    rgru.bigru_stack(stack, torch.zeros((3, 1, 4)), 3)
     assert (vgru.launches, rgru.launches, refine.launches) == before
 
 
@@ -268,6 +322,29 @@ def test_rgru_kernel_on_card(reverse):
     ref = rgru.gru_seq_plain(p["wh"], p["bh"], xproj, valid, reverse=reverse)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_len,valid", [(88, [82]), (88, [88, 61, 1, 82, 0]), (352, [350])])
+def test_rgru_bidir_kernel_on_card(t_len, valid):
+    """One launch for both directions of a layer at the main path's shape
+    (H 256), a ragged batch with a zero length and the crop bucket's T."""
+    _require_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(t_len)
+    stack = _torch_tree(_np_tree(jax_gru.bigru_stack_params(jax.random.PRNGKey(1), 1, 8, 256)))
+    fwd, bwd = ({k: v.to(dev) for k, v in stack[0][d].items()} for d in ("fwd", "bwd"))
+    xf, xb = (torch.from_numpy(rng.normal(size=(t_len, len(valid), 768)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    v = torch.tensor(valid, dtype=torch.int32, device=dev)
+    before = rgru.launches
+    out = rgru.gru_seq_bidir(fwd, bwd, xf, xb, v)
+    out2 = rgru.gru_seq_bidir(fwd, bwd, xf, xb, v)
+    ref = rgru.gru_seq_bidir_plain(fwd, bwd, xf, xb, v)
+    torch.cuda.synchronize()
+    assert rgru.launches == before + 2
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert torch.equal(out, out2)
 
 
 @pytest.mark.gpu
