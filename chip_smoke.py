@@ -14,8 +14,10 @@ Phases, each printing one JSON line:
    the shapes of the default fold of the bundled PF10963 example (and more:
    vgru also at 1024 x 352 with ragged depths, rgru's one-launch biGRU layer
    also at B 5 with ragged lengths and at T 352, the conv in both modes up
-   to L 352), each launched twice for the same bits, with the tolerance
-   stated; device times from torch.profiler or CUDA events after warm-up.
+   to L 352, refine on the fold's own trace and on random walks at L 88, 352
+   and 1536 and as a ragged batch of 4), each launched twice for the same
+   bits, with the tolerance stated; device times from torch.profiler or CUDA
+   events after warm-up.
 4. fold    -- ``aln_to_coords`` on PF10963 at full width (512/128/16, random
    weights from seed 0) with the defaults ``-n 10 -m 100`` on ``cuda``, once
    per engine (fp32, then bf16): a warm-up fold, then the timed fold with
@@ -113,6 +115,16 @@ RGRU_CASES = ((L_PAD, [NRES]), (L_PAD, [88, 61, 1, 82, 0]), (352, [350]))
 # ragged per-column depths, several column chunks per block
 VGRU_WIDE = (1024, 352)
 GEMM_K_IN = 955  # the input layer's channels: 512 pair + 442 DCA + 1 dmap
+# refine, 100 steps: the fold's own first input (the random model's trace,
+# collapsed: every pair closer than 3 A, so every pair takes the force path;
+# there 100 steps part two fp32 versions by about 2e-3 A, so it is held step
+# by step), then random walks as (L, nres per target): the fold's shape, the
+# training crop's bucket with a padded target, the largest bucket, a ragged
+# batch; the timed ones with their profiler reps
+REFINE_FOLD_CASE = f"fold trace L={L_PAD} nres={[NRES]}"
+REFINE_CASES = ((L_PAD, [NRES]), (352, [330]), (1536, [1536]), (352, [352, 300, 82, 1]))
+REFINE_TIMED = {REFINE_FOLD_CASE: 50, f"L={L_PAD} nres={[NRES]}": 50, "L=1536 nres=[1536]": 10,
+                "L=352 nres=[352, 300, 82, 1]": 20}
 
 
 def emit(obj) -> None:
@@ -202,7 +214,7 @@ def _chain(n: int, rng) -> np.ndarray:
 def phase_kernels(params) -> dict:
     """Each kernel against its plain version on the card; returns per-kernel rows."""
     from dmpfold2_tpu_torch.engine.fold import use_full_fp32
-    from dmpfold2_tpu_torch.kernels import refine, rgru, vgru
+    from dmpfold2_tpu_torch.kernels import rgru, vgru
 
     use_full_fp32()  # the library calls too: cuDNN's GRU would otherwise use TF32
     dev = torch.device("cuda")
@@ -321,27 +333,7 @@ def phase_kernels(params) -> dict:
                                "I, b_ih = 0, on xproj_f (both directions read it), valid = T",
                     "library_max_abs_err": lib_err}
 
-    # ---- refine: L = 88 with nres = 82 (main path) and L = 1536, 100 steps
-    err = 0.0
-    for n, nres in ((L_PAD, NRES), (1536, 1536)):
-        ca = torch.from_numpy(_chain(n, rng)).to(dev)
-        out = refine.refine_coords(ca, MINSTEPS, nres)
-        ref = refine.refine_coords_plain(ca, MINSTEPS, nres)
-        e = (out - ref).abs().max().item()
-        err = max(err, e)
-        cases.append({"kernel": "refine", "case": f"L={n} nres={nres} steps={MINSTEPS}",
-                      "max_abs_err": e})
-    ca = torch.from_numpy(_chain(L_PAD, rng)).to(dev)
-    ms = time_ms(lambda: refine.refine_coords(ca, MINSTEPS, NRES), reps=20)
-    plain_ms = time_ms(lambda: refine.refine_coords_plain(ca, MINSTEPS, NRES), reps=3)
-    flops = MINSTEPS * REFINE_FLOP_PER_PAIR * NRES * NRES
-    b, by = bound_ms(flops, 2 * 4 * 3 * L_PAD)
-    rows["refine"] = {"name": "refine", "route": "cuda",
-                      "source": "dmpfold2_tpu_torch/csrc/refine.cu",
-                      "replaces": "dmpfold2_tpu/kernels/refine.py:104", "max_abs_err": err,
-                      "tol": REFINE_TOL, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
-                      "bound_by": by, "library_ms": None}
-
+    rows["refine"] = _refine_kernel(params, rng, cases)
     rows.update(_trunk_kernels(params, rng, cases))
     rows["conv5x5_maxout_diff"] = _argmax_kernel(params, rng, cases)
 
@@ -354,6 +346,107 @@ def phase_kernels(params) -> dict:
     if failed:
         raise AssertionError(f"kernels differ from their plain versions: {failed}")
     return rows
+
+
+def _fold_trace(params) -> torch.Tensor:
+    """The fp32 fold's first refinement input on PF10963 (``-n 0``), as
+    (1, L_PAD, 3) on the card: the trace the main path refines."""
+    from dmpfold2_tpu_torch import aln_to_coords
+    from dmpfold2_tpu_torch.kernels import refine
+
+    seen, orig = [], refine.refine_coords
+
+    def recording(ca, n_steps, nres):
+        seen.append(ca.clone())
+        return orig(ca, n_steps, nres)
+
+    refine.refine_coords = recording
+    try:
+        aln_to_coords(EXAMPLE_ALN, device="cuda", params=params, iterations=0,
+                      minsteps=MINSTEPS)
+    finally:
+        refine.refine_coords = orig
+    return seen[0][None]
+
+
+def _refine_stepwise_err(refine, ca, nres) -> float:
+    """Along the plain version's MINSTEPS-step path from ``ca``: the largest
+    difference between one kernel step and one plain step from the same
+    state. One step's rounding is not amplified by the steps after it."""
+    worst = torch.zeros((), device=ca.device)
+    for _ in range(MINSTEPS):
+        nxt = refine.refine_coords_batched_plain(ca, 1, nres)
+        worst = torch.maximum(worst, (refine.refine_coords_batched(ca, 1, nres) - nxt).abs().max())
+        ca = nxt
+    return worst.item()
+
+
+def _refine_kernel(params, rng, cases) -> dict:
+    """refine against its plain version on the fold's own trace and at every
+    REFINE_CASES shape: within REFINE_TOL (the fold's trace step by step, see
+    REFINE_FOLD_CASE), the same bits on a second launch, padding untouched.
+    Each case records beside the check how far the plain version on the CPU
+    lies from the one on the card, and the kernel and both plain versions
+    from the plain version in fp64. Timed at the REFINE_TIMED cases; the
+    row's ms is the fold trace's."""
+    from dmpfold2_tpu_torch.kernels import refine
+
+    dev = torch.device("cuda")
+    inputs = [(REFINE_FOLD_CASE, _fold_trace(params), [NRES])]
+    inputs += [(f"L={n} nres={nres_l}",
+                torch.from_numpy(np.stack([_chain(n, rng) for _ in nres_l])).to(dev), nres_l)
+               for n, nres_l in REFINE_CASES]
+    err, shapes = 0.0, {}
+    for label, ca, nres_l in inputs:
+        nres = torch.tensor(nres_l, dtype=torch.int32, device=dev)
+        if len(nres_l) == 1:  # the fold's entry point
+            def run(ca=ca, k=nres_l[0]):
+                return refine.refine_coords(ca[0], MINSTEPS, k)[None]
+        else:
+            def run(ca=ca, nres=nres):
+                return refine.refine_coords_batched(ca, MINSTEPS, nres)
+        out, out2 = run(), run()
+        ref = refine.refine_coords_batched_plain(ca, MINSTEPS, nres)
+        e = (out - ref).abs().max().item()
+        same = bool(torch.equal(out, out2))
+        kept = all(torch.equal(out[b, k:], ca[b, k:]) for b, k in enumerate(nres_l))
+        ref64 = refine.refine_coords_batched_plain(ca.double(), MINSTEPS, nres)
+        ref_cpu = refine.refine_coords_batched_plain(ca.cpu(), MINSTEPS, nres.cpu())
+        valid = ca[0, :nres_l[0]]
+        close = (torch.cdist(valid, valid) < 3.0).float().mean().item()
+        case = {"kernel": "refine", "case": label, "steps": MINSTEPS,
+                "pairs_closer_than_3A": close, "max_abs_err": e, "tol": REFINE_TOL,
+                "second_launch_identical": same, "padding_untouched": kept,
+                "plain_cpu_vs_plain": (ref_cpu - ref.cpu()).abs().max().item(),
+                "vs_fp64": (out - ref64).abs().max().item(),
+                "plain_vs_fp64": (ref - ref64).abs().max().item(),
+                "plain_cpu_vs_fp64": (ref_cpu.double() - ref64.cpu()).abs().max().item()}
+        if label == REFINE_FOLD_CASE:
+            case["stepwise_max_abs_err"] = _refine_stepwise_err(refine, ca, nres)
+            err = max(err, case["stepwise_max_abs_err"])
+            case["ok"] = case["stepwise_max_abs_err"] <= REFINE_TOL and same and kept
+        else:
+            err = max(err, e)
+            case["ok"] = e <= REFINE_TOL and same and kept
+        cases.append(case)
+        if label in REFINE_TIMED:
+            flops = MINSTEPS * REFINE_FLOP_PER_PAIR * sum(k * k for k in nres_l)
+            b, by = bound_ms(flops, 2 * 4 * ca.numel() + 4 * len(nres_l))
+            shapes[label] = {
+                "ms": device_ms(run, "refine_kernel", reps=REFINE_TIMED[label]),
+                "call_ms": time_ms(run, reps=REFINE_TIMED[label]),
+                "plain_ms": time_ms(lambda ca=ca, nres=nres: refine.refine_coords_batched_plain(
+                    ca, MINSTEPS, nres), reps=2, warmup=1),
+                "bound_ms": b, "bound_by": by, "gflop": flops / 1e9,
+                "pairs_closer_than_3A": close}
+    main = shapes[REFINE_FOLD_CASE]
+    return {"name": "refine", "route": "cuda", "source": "dmpfold2_tpu_torch/csrc/refine.cu",
+            "replaces": "dmpfold2_tpu/kernels/refine.py:104", "max_abs_err": err,
+            "tol": REFINE_TOL, "ms": main["ms"], "call_ms": main["call_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "shape": f"the fold's trace, L {L_PAD}, nres {NRES}, {MINSTEPS} steps; one cluster "
+                     "of 16 CTAs per target", "shapes": shapes}
 
 
 def _trunk_kernels(params, rng, cases) -> dict:

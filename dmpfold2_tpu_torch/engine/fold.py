@@ -101,12 +101,14 @@ class Folder:
     """Holds the parameters on one device and folds single targets.
 
     With ``precision="bf16"`` the trunk weights are packed for the bf16
-    kernels here, once, not per fold.
+    kernels here, once, not per fold. On a CUDA device, widths the kernels
+    cannot run raise ``ValueError`` before any upload.
     """
 
     def __init__(self, params, device=None, precision: str = "fp32"):
         check_precision(precision)
         self.device = resolve_device(device)
+        gruresnet.check_card_widths(params, precision, self.device)
         use_full_fp32()
         self.params = gruresnet.pack_params(params_to(params, self.device), precision)
         self.precision = precision

@@ -182,15 +182,33 @@ def _launch(lib: str, entry: str, x, w_packed, b_packed, nres, tiles: int, pool:
     return out, sums[:, 0], sums[:, 1]
 
 
+def conv_width_error(c_in: int, c_out: int) -> str | None:
+    """Why the conv kernel cannot run a ``c_in`` -> ``c_out`` conv, or None."""
+    broken = []
+    if c_in != CONV_C_IN:
+        broken.append(f"c_in must be {CONV_C_IN} (got {c_in})")
+    if c_out <= 0 or c_out % CONV_N_TILE:
+        broken.append(f"c_out must be a multiple of {CONV_N_TILE} (got {c_out})")
+    return "; ".join(broken) or None
+
+
+def gemm_width_error(c_out: int) -> str | None:
+    """Why the GEMM kernel cannot run ``c_out`` output channels, or None."""
+    if c_out <= 0 or c_out % GEMM_N_TILE:
+        return f"c_out must be a multiple of {GEMM_N_TILE} (got {c_out})"
+    return None
+
+
 def _check_conv(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor) -> None:
     """What the conv kernel takes, in either mode; raises otherwise."""
-    if x.dim() != 4 or x.shape[1] != x.shape[2] or x.shape[3] != CONV_C_IN:
+    if x.dim() != 4 or x.shape[1] != x.shape[2]:
         raise ValueError(f"conv5x5_maxout: x must be (B, L, L, {CONV_C_IN}); got "
                          f"{tuple(x.shape)}")
     c_out = w_packed.shape[0] if w_packed.dim() == 2 else 0
-    if c_out <= 0 or c_out % CONV_N_TILE:
-        raise ValueError(f"conv5x5_maxout: w_packed must be (c_out, {KSIZE * KSIZE * CONV_C_IN}) "
-                         f"with c_out a multiple of {CONV_N_TILE}; got {tuple(w_packed.shape)}")
+    msg = conv_width_error(x.shape[3], c_out)
+    if msg:
+        raise ValueError(f"conv5x5_maxout: {msg}; x must be (B, L, L, c_in) and w_packed "
+                         f"(c_out, 25 c_in), got {tuple(x.shape)} and {tuple(w_packed.shape)}")
     dev = x.device
     _check("conv5x5_maxout: x", x, torch.bfloat16, x.shape, dev)
     _check("conv5x5_maxout: w_packed", w_packed, torch.bfloat16,
@@ -358,9 +376,9 @@ def gemm_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.T
                          f"{GEMM_K_ALIGN}; got {tuple(x.shape)}")
     batch, l_rows, _, k_pad = x.shape
     c_out = w_packed.shape[0]
-    if c_out <= 0 or c_out % GEMM_N_TILE or batch > 65535:
-        raise ValueError(f"gemm_maxout: c_out must be a multiple of {GEMM_N_TILE} and "
-                         f"B <= 65535; got c_out {c_out}, B {batch}")
+    msg = gemm_width_error(c_out)
+    if msg or batch > 65535:
+        raise ValueError(f"gemm_maxout: {msg or f'need B <= 65535 (got {batch})'}")
     dev = x.device
     _check("gemm_maxout: x", x, torch.bfloat16, x.shape, dev)
     _check("gemm_maxout: w_packed", w_packed, torch.bfloat16, (c_out, k_pad), dev)

@@ -42,6 +42,13 @@ def gru_seq_bidir_plain(fwd, bwd, xproj_f: torch.Tensor, xproj_b: torch.Tensor,
                                              reverse=True)], dim=-1)
 
 
+def width_error(hidden: int) -> str | None:
+    """Why the kernel cannot run a GRU of ``hidden`` units, or None."""
+    if hidden % 32 or hidden > MAX_HIDDEN:
+        return f"hidden size {hidden} must be a multiple of 32 and at most {MAX_HIDDEN}"
+    return None
+
+
 def _check(xproj: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor,
            col_valid: torch.Tensor) -> None:
     device = xproj.device
@@ -56,9 +63,9 @@ def _check(xproj: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor,
             raise ValueError(f"rgru: {name} must be a contiguous {dtype} tensor of shape "
                              f"{shape} on {device}; got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device} (contiguous={t.is_contiguous()})")
-    if hidden % 32 or hidden > MAX_HIDDEN:
-        raise ValueError(f"rgru: hidden size {hidden} must be a multiple of 32 and at most "
-                         f"{MAX_HIDDEN}")
+    msg = width_error(hidden)
+    if msg:
+        raise ValueError(f"rgru: {msg}")
 
 
 def _launch(passes, col_valid: torch.Tensor, out: torch.Tensor, first_reverse: bool) -> None:

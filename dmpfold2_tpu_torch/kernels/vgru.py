@@ -24,6 +24,8 @@ from ..models import gru
 from ..utils.aln import NUM_CLASSES
 from . import _build
 
+MAX_HIDDEN = 512  # H / 4 blocks, each with its weight slice in shared memory, all resident
+
 launches = 0  # kernel launches since the last reset
 
 
@@ -42,16 +44,26 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
                          f"on {t.device} (contiguous={t.is_contiguous()})")
 
 
+def width_error(n_layers: int, hidden: int) -> str | None:
+    """Why the kernel cannot run a GRU of ``n_layers`` x ``hidden``, or None."""
+    if n_layers != 2:
+        return f"the kernel runs the reference's 2-layer GRU (got {n_layers} layers)"
+    if hidden % 32 or hidden > MAX_HIDDEN:
+        return f"hidden size {hidden} must be a multiple of 32, at most {MAX_HIDDEN}"
+    return None
+
+
 def vgru_final_cols(layers, aln_cols: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
     """(n_rows, n_cols) int32 alignment, (n_cols,) int32 depths -> (n_cols, H) fp32."""
     global launches
     if aln_cols.device.type == "cpu":
         return vgru_final_cols_plain(layers, aln_cols, col_valid)
-    if len(layers) != 2:
-        raise ValueError("vgru: the kernel runs the reference's 2-layer GRU")
     device = aln_cols.device
     n_rows, n_cols = aln_cols.shape
     hidden = layers[0]["wh"].shape[0]
+    msg = width_error(len(layers), hidden)
+    if msg:
+        raise ValueError(f"vgru: {msg}")
     _check(aln_cols, "aln_cols", torch.int32, (n_rows, n_cols), device)
     _check(col_valid, "col_valid", torch.int32, (n_cols,), device)
     _check(layers[0]["wi"], "wi1", torch.float32, (NUM_CLASSES, 3 * hidden), device)
@@ -60,8 +72,6 @@ def vgru_final_cols(layers, aln_cols: torch.Tensor, col_valid: torch.Tensor) -> 
                            ("bh", (3 * hidden,))):
             _check(p[key], f"{key}{i + 1}", torch.float32, shape, device)
     _check(layers[1]["wi"], "wi2", torch.float32, (hidden, 3 * hidden), device)
-    if hidden % 32 or hidden > 512:
-        raise ValueError(f"vgru: hidden size {hidden} must be a multiple of 32, at most 512")
     out = torch.empty((n_cols, hidden), dtype=torch.float32, device=device)
     if n_cols == 0:
         return out

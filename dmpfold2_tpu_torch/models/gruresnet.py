@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels import refine, rgru, vgru
+from ..kernels import conv_block, refine, rgru, vgru
 from ..ops.dropout import fold_in
 from ..utils.aln import NUM_CLASSES as NUM_AA_CLASSES  # 22
 from . import gru
@@ -54,6 +54,43 @@ def init_params(seed: int = 0, width: int = WIDTH, cwidth: int = CWIDTH, num_blo
         "coord_gru": gru.bigru_stack_params(gen, 3, width + 8, width // 2),
         "coord_fc": (torch.rand((width, 3), generator=gen) * 2.0 - 1.0) * bound,
     }
+
+
+def check_card_widths(params, precision: str, device, *, training: bool = False) -> None:
+    """Raise ``ValueError`` when the CUDA kernels on ``device`` cannot run a
+    model of ``params``' widths at ``precision``, naming each broken limit;
+    do nothing for the CPU, whose plain versions run any width.
+
+    Shape arithmetic on the parameters, so callers run it before any upload;
+    each limit is the kernel module's own (``width_error``). A fold runs
+    vgru (width), rgru (width / 2, hgru and coord_gru) and, in bf16, the
+    trunk's input GEMM and block conv; a training step runs its GRUs as plain
+    scans and its block convs through the conv kernel's argmax mode, so only
+    the bf16 block conv limits it.
+    """
+    if torch.device(device).type != "cuda":
+        return
+    broken = []
+    if not training:
+        msg = vgru.width_error(len(params["vgru"]), params["vgru"][0]["wh"].shape[0])
+        if msg:
+            broken.append(f"vgru (width): {msg}")
+        for name in ("hgru", "coord_gru"):
+            msg = rgru.width_error(params[name][0]["fwd"]["wh"].shape[0])
+            if msg:
+                broken.append(f"rgru ({name}, width / 2): {msg}")
+    if precision == "bf16":
+        trunk = params["trunk"]
+        for c_out, c_in in sorted({tuple(b["maxout"]["w"].shape[:2]) for b in trunk["blocks"]}):
+            msg = conv_block.conv_width_error(c_in, c_out)
+            if msg:
+                broken.append(f"the bf16 block conv (cwidth -> 4 x cwidth): {msg}")
+        msg = conv_block.gemm_width_error(trunk["input"]["w"].shape[0])
+        if msg and not training:
+            broken.append(f"the bf16 input GEMM (3 x cwidth outputs): {msg}")
+    if broken:
+        raise ValueError(f"the CUDA kernels cannot run this model in {precision}: "
+                         + "; ".join(broken) + ". Run it with device='cpu' (CLI: -d cpu)")
 
 
 def pack_params(params, precision: str):

@@ -109,6 +109,7 @@ def train(data_dir: str = ".", clusters: str = "train_clust.lst", workdir: str =
     print(f"{len(train_list)} training / {len(validation_list)} validation clusters")
 
     params = gruresnet.init_params(seed, **(model_kwargs or {}))
+    gruresnet.check_card_widths(params, precision, dev, training=True)  # before any upload
     lr = cfg.learning_rate_scratch
     if restart:
         best_train = os.path.join(workdir, ckpt.BEST_TRAIN)

@@ -240,12 +240,14 @@ def train_step(params, optimizer: Optimizer | None, batch: TrainBatch, seed: int
     parameters, Adam's moments and the accumulation buffer stay as they
     were, as the reference's GradScaler skips (train.py:213-217, 373-374).
     ``native_batch=False``, the JAX package's vmapped per-sample path for
-    mesh sharding, is not ported yet.
+    mesh sharding, is not ported yet. On a CUDA device, widths the kernels
+    cannot run raise ``ValueError`` before the batch is uploaded.
     """
     if not native_batch:
         raise NotImplementedError("train_step: native_batch=False (the vmapped per-sample "
                                   "path for multi-device sharding) is not yet ported")
     device = leaves(params)[0].device
+    gruresnet.check_card_widths(params, precision, device, training=True)
     alnmat = torch.from_numpy(np.asarray(batch.alnmat, np.int32)).to(device)
     targets = torch.from_numpy(np.asarray(batch.targets, np.float32)).to(device)
     batch_size, l_pad = alnmat.shape[0], alnmat.shape[2]

@@ -17,6 +17,10 @@ package from its tree, builds that tree's kernels into its own
   has it, else two ``gru_seq`` launches, one per direction, summed;
 * the device time of gemm_maxout at B 1, L 88 (nres 82), the trunk's input
   layer with the tree's own weight packing;
+* the device time of one refine launch (``refine_coords``, 100 steps) on
+  the fp32 fold's own first input (``chip_smoke._fold_trace``, L 88, nres
+  82) and on random walks at L 88 (nres 82) and at the largest bucket, L 1536
+  (nres 1536);
 * the fp32 and bf16 default folds of PF10963 (``chip_smoke.phase_fold``: five
   timed folds, exact launch counts) and their device time by category
   (``chip_smoke.phase_profile``).
@@ -52,7 +56,7 @@ def measure(tree: str) -> dict:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from dmpfold2_tpu_torch.engine.fold import use_full_fp32
-    from dmpfold2_tpu_torch.kernels import _build, conv_block, rgru, vgru
+    from dmpfold2_tpu_torch.kernels import _build, conv_block, refine, rgru, vgru
     from dmpfold2_tpu_torch.models.gruresnet import init_params
 
     assert os.path.dirname(os.path.dirname(vgru.__file__)).startswith(os.path.abspath(tree))
@@ -114,6 +118,15 @@ def measure(tree: str) -> dict:
             lambda: conv_block.conv5x5_maxout_argmax(x, wp, bp), "conv5x5_maxout_argmax_kernel",
             reps=20)
 
+    fold_ca = cs._fold_trace(params)[0]
+    res["refine_ms_fold"] = cs.device_ms(
+        lambda: refine.refine_coords(fold_ca, cs.MINSTEPS, cs.NRES), "refine_kernel", reps=20)
+    for n, nres in ((cs.L_PAD, cs.NRES), (1536, 1536)):
+        ca = torch.from_numpy(cs._chain(n, np.random.default_rng(n))).to(dev)
+        res[f"refine_ms_L{n}"] = cs.device_ms(
+            lambda: refine.refine_coords(ca, cs.MINSTEPS, nres), "refine_kernel",
+            reps=20 if n == cs.L_PAD else 5)
+
     for precision in ("fp32", "bf16"):
         lines = io.StringIO()
         with contextlib.redirect_stdout(lines):
@@ -156,7 +169,8 @@ def main() -> None:
         mine = [t for t in turns if t["label"] == label]
         summary[label] = {"tree": tree}
         for key in ("vgru_ms", "rgru_layer_ms", "gemm_ms", "conv_stats_ms", "conv_stats_call_ms",
-                    "conv_argmax_ms_L88", "conv_argmax_ms_L352"):
+                    "conv_argmax_ms_L88", "conv_argmax_ms_L352", "refine_ms_fold",
+                    "refine_ms_L88", "refine_ms_L1536"):
             summary[label][key] = sorted(t[key] for t in mine)
         for precision in ("fp32", "bf16"):
             summary[label][f"fold_{precision}_wall_s_median"] = sorted(

@@ -216,9 +216,53 @@ def test_refine_plain_matches_pallas_and_xla(l, nres, steps):
     np.testing.assert_array_equal(ours[nres:], ca[nres:])  # padding stays put
 
 
-def test_refine_plain_zero_steps_identity():
+@pytest.mark.parametrize("l,steps,nres,seeds", [
+    (40, 20, [40, 23, 1], (3, 4, 5)),  # a full target, a padded one, a single residue
+    (50, 15, [44], (6,)),              # B 1, as the single-target wrapper launches it
+])
+def test_refine_batched_plain_matches_vmapped_pallas_and_xla(l, steps, nres, seeds):
+    """The batched plain version against the JAX package's vmap of the
+    Pallas kernel and its XLA path."""
+    nres = np.array(nres, np.int32)
+    ca = np.stack([_chain(l, seed=s) for s in seeds])
+    ours = refine.refine_coords_batched(torch.from_numpy(ca), steps,
+                                        torch.from_numpy(nres)).numpy()
+    pallas = np.asarray(jax.vmap(lambda c, n: refine_coords_pallas(
+        c, jnp.asarray(steps), n, interpret=True))(jnp.asarray(ca), jnp.asarray(nres)))
+    for b, n in enumerate(nres):
+        xla = np.asarray(jax_geometry.refine_coords(jnp.asarray(ca[b]), jnp.asarray(steps), n))
+        np.testing.assert_allclose(ours[b], xla, atol=REFINE_TOL)
+        np.testing.assert_allclose(ours[b], pallas[b], atol=REFINE_TOL)
+        np.testing.assert_array_equal(ours[b, n:], ca[b, n:])  # padding stays put
+    if len(nres) == 1:  # the single-target wrapper's path
+        np.testing.assert_array_equal(
+            refine.refine_coords(torch.from_numpy(ca[0]), steps, int(nres[0])).numpy(), ours[0])
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_refine_plain_zero_steps_identity(batched):
     ca = _chain(33, seed=2)
-    np.testing.assert_array_equal(refine.refine_coords(torch.from_numpy(ca), 0, 33).numpy(), ca)
+    if batched:
+        out = refine.refine_coords_batched(torch.from_numpy(np.stack([ca, ca])), 0,
+                                           torch.tensor([33, 20], dtype=torch.int32))
+        np.testing.assert_array_equal(out.numpy(), np.stack([ca, ca]))
+    else:
+        np.testing.assert_array_equal(refine.refine_coords(torch.from_numpy(ca), 0, 33).numpy(),
+                                      ca)
+
+
+def test_refine_limit_covers_every_bucket():
+    """The kernel's shared memory holds a trace of the largest bucket; a
+    longer one is refused with the limit named, before any build or launch
+    (meta tensors: the wrapper's checks run on shapes alone)."""
+    from dmpfold2_tpu_torch.engine.buckets import RES_BUCKETS
+
+    assert refine.MAX_L >= RES_BUCKETS[-1]
+    meta = torch.device("meta")
+    nres = torch.empty((1,), dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match=f"L <= {refine.MAX_L}"):
+        refine.refine_coords_batched(torch.empty((1, refine.MAX_L + 1, 3), device=meta), 10,
+                                     nres)
 
 
 def test_refine_plain_padded_matches_unpadded():
@@ -233,6 +277,7 @@ def test_refine_plain_padded_matches_unpadded():
 def test_cpu_wrappers_do_not_launch(vgru_layers):
     before = (vgru.launches, rgru.launches, refine.launches)
     refine.refine_coords(torch.zeros(4, 3), 2, 4)
+    refine.refine_coords_batched(torch.zeros(2, 4, 3), 2, torch.tensor([4, 3], dtype=torch.int32))
     vgru.vgru_final(_torch_tree(vgru_layers), torch.zeros((5, 3), dtype=torch.int32), 5)
     stack = _torch_tree(_np_tree(jax_gru.bigru_stack_params(jax.random.PRNGKey(0), 1, 4, 16)))
     rgru.bigru_stack(stack, torch.zeros((3, 1, 4)), 3)
@@ -347,15 +392,51 @@ def test_rgru_bidir_kernel_on_card(t_len, valid):
     assert torch.equal(out, out2)
 
 
+def _chains_on_card(l, count, seed, packed=False):
+    """Random-walk CA traces with 3.8 A steps, (count, l, 3) on the card; or,
+    ``packed``, points uniform in a ball of radius 1.4 A (every pair closer
+    than 3 A, as in the random model's collapsed trace)."""
+    rng = np.random.default_rng(seed)
+    if packed:
+        dirs = rng.normal(size=(count, l, 3))
+        dirs *= 1.4 * rng.uniform(size=(count, l, 1)) ** (1 / 3) / np.linalg.norm(
+            dirs, axis=2, keepdims=True)
+        return torch.from_numpy(dirs.astype(np.float32)).cuda()
+    steps = rng.normal(size=(count, l, 3))
+    steps *= 3.8 / np.linalg.norm(steps, axis=2, keepdims=True)
+    return torch.from_numpy(np.cumsum(steps, axis=1).astype(np.float32)).cuda()
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("l,nres", [(88, 82), (1536, 1536)])
-def test_refine_kernel_on_card(l, nres):
+@pytest.mark.parametrize("l,nres,packed", [(88, [82], False), (88, [82], True),
+                                            (1536, [1536], False),
+                                            (352, [352, 300, 82, 1], False)])
+def test_refine_kernel_on_card(l, nres, packed):
+    """The batched kernel at the fold's shape (a random walk and a packed
+    trace), the largest bucket and a ragged batch: within 1e-4 of the plain
+    version, the same bits on a second launch, padding untouched; the
+    single-target wrapper is the same launch. 100 steps from a packed trace
+    part two fp32 versions by far more than 1e-4, so there each kernel step
+    is held against a plain step from the same state along the plain path."""
     _require_cuda()
-    steps = np.random.default_rng(l).normal(size=(l, 3))
-    steps *= 3.8 / np.linalg.norm(steps, axis=1, keepdims=True)
-    ca = torch.from_numpy(np.cumsum(steps, axis=0).astype(np.float32)).cuda()
-    out = refine.refine_coords(ca, 100, nres)
-    ref = refine.refine_coords_plain(ca, 100, nres)
-    torch.cuda.synchronize()
-    assert (out - ref).abs().max().item() <= 1e-4
-    assert torch.equal(out[nres:], ca[nres:])
+    ca = _chains_on_card(l, len(nres), seed=l, packed=packed)
+    nr = torch.tensor(nres, dtype=torch.int32, device=ca.device)
+    before = refine.launches
+    out = refine.refine_coords_batched(ca, 100, nr)
+    out2 = refine.refine_coords_batched(ca, 100, nr)
+    assert refine.launches == before + 2
+    if packed:
+        x, worst = ca, 0.0
+        for _ in range(100):
+            nxt = refine.refine_coords_batched_plain(x, 1, nr)
+            worst = max(worst, (refine.refine_coords_batched(x, 1, nr) - nxt).abs().max().item())
+            x = nxt
+        assert worst <= REFINE_TOL
+    else:
+        ref = refine.refine_coords_batched_plain(ca, 100, nr)
+        assert (out - ref).abs().max().item() <= REFINE_TOL
+    assert torch.equal(out, out2)
+    for b, n in enumerate(nres):
+        assert torch.equal(out[b, n:], ca[b, n:])
+    if len(nres) == 1:
+        assert torch.equal(refine.refine_coords(ca[0].contiguous(), 100, nres[0]), out[0])
