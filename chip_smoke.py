@@ -22,7 +22,8 @@ Phases, each printing one JSON line:
    weights from seed 0) with the defaults ``-n 10 -m 100`` on ``cuda``, once
    per engine (fp32, then bf16): a warm-up fold, then the timed fold with
    every launch counter set to 0 just before it and read just after, and
-   four more timed folds for the spread of the wall time. Checks
+   four more timed folds for the spread of the wall time, and five on a
+   held ``Folder`` (parameters uploaded once, the serving case). Checks
    the PDB, finite values, confidences in [0, 1] and the exact launch counts
    (the fp32 fold launches no bf16 trunk kernel).
    One more fold per engine under torch.profiler gives device time by kernel.
@@ -34,7 +35,22 @@ Phases, each printing one JSON line:
    ``phase_cpu`` for why the atoms get the wider bound). bf16 at ``-n 0
    -m 0``: confidences, and one trunk pass's distance-map and confidence
    channels (see ``phase_cpu_bf16`` for the bounds).
-7. train   -- bf16 training at full width through ``DMPDataset``,
+7. batch   -- per engine, the batch engine (``BatchFolder.fold_many``, the
+   CLI's ``-o`` mode) on 16 targets, batch size 8, ``-n 10 -m 100``:
+   PF10963 and seven seeded alignments in bucket 256 x 88, eight in 256 x
+   256. Counters set to 0 around one run: each kernel's launches per batch
+   must equal one fold's; no batch may fail (a requeue fails the phase).
+   Targets/s, the time ``fold_many_async`` takes to return, each batch
+   alone, the device idle share of one 256 x 256 batch; four targets
+   against their own single folds (fp32 at ``-n 1 -m 10``, bf16 at ``-n 0
+   -m 0`` with phase cpu's bounds) and a partial batch against the full one.
+8. serve   -- a bf16 ``FoldService`` over HTTP (max batch 8, warmed at 256 x
+   88): 16 concurrent clients post PF10963 at the defaults (half as text,
+   half as JSON), then 16 post phase batch's targets; every response a
+   whole PDB, requests coalesced, every inference kernel launched, req/s
+   and latency percentiles; then each inference kernel's device time and
+   bound at the batch shapes (B 8, L 256; refine also at B 16).
+9. train   -- bf16 training at full width through ``DMPDataset``,
    ``pad_to_bucket``, ``make_optimizer`` and ``train_step``, on two samples
    written to a temp dir: four micro-steps (nloops 0-3, accumulation over 2)
    and an eval step on PF10963 with exact launch counts (16 argmax launches
@@ -49,9 +65,10 @@ stats mode and its plain version, and ``Conv5x5MaxoutDiff``'s gradients
 against autograd through the plain version, and times both directions.
 
 Then the ``kernels`` line (launches from phase 4: the fp32 fold for vgru,
-rgru and refine, the bf16 fold for the two trunk kernels; from phase 7's
-micro-steps for conv5x5_maxout_diff), and last ``{"ok": true, "device":
-{...}}``. Any failure raises: the script exits nonzero without the last
+rgru and refine, the bf16 fold for the two trunk kernels; from phase 9's
+micro-steps for conv5x5_maxout_diff; ``launches_by_path`` gives each path's
+own count, ``batch_shape`` the time and bound at the batch shapes), and last
+``{"ok": true, "device": {...}}``. Any failure raises: the script exits nonzero without the last
 line. It imports neither JAX nor the JAX package.
 """
 
@@ -354,19 +371,19 @@ def _fold_trace(params) -> torch.Tensor:
     from dmpfold2_tpu_torch import aln_to_coords
     from dmpfold2_tpu_torch.kernels import refine
 
-    seen, orig = [], refine.refine_coords
+    seen, orig = [], refine.refine_coords_batched
 
     def recording(ca, n_steps, nres):
         seen.append(ca.clone())
         return orig(ca, n_steps, nres)
 
-    refine.refine_coords = recording
+    refine.refine_coords_batched = recording
     try:
         aln_to_coords(EXAMPLE_ALN, device="cuda", params=params, iterations=0,
                       minsteps=MINSTEPS)
     finally:
-        refine.refine_coords = orig
-    return seen[0][None]
+        refine.refine_coords_batched = orig
+    return seen[0]
 
 
 def _refine_stepwise_err(refine, ca, nres) -> float:
@@ -399,12 +416,9 @@ def _refine_kernel(params, rng, cases) -> dict:
     err, shapes = 0.0, {}
     for label, ca, nres_l in inputs:
         nres = torch.tensor(nres_l, dtype=torch.int32, device=dev)
-        if len(nres_l) == 1:  # the fold's entry point
-            def run(ca=ca, k=nres_l[0]):
-                return refine.refine_coords(ca[0], MINSTEPS, k)[None]
-        else:
-            def run(ca=ca, nres=nres):
-                return refine.refine_coords_batched(ca, MINSTEPS, nres)
+
+        def run(ca=ca, nres=nres):
+            return refine.refine_coords_batched(ca, MINSTEPS, nres)
         out, out2 = run(), run()
         ref = refine.refine_coords_batched_plain(ca, MINSTEPS, nres)
         e = (out - ref).abs().max().item()
@@ -449,6 +463,25 @@ def _refine_kernel(params, rng, cases) -> dict:
                      "of 16 CTAs per target", "shapes": shapes}
 
 
+def _trunk_check(kernel, plain, x, w, b, nr) -> dict:
+    """A bf16 trunk kernel against its plain version on the same inputs:
+    the output within one bf16 ulp, the sums within STATS_RTOL, the same bits
+    on a second launch."""
+    out, s, ss = kernel(x, w, b, nr)
+    out2, s2, ss2 = kernel(x, w, b, nr)
+    ref, rs, rss = plain(x, w, b, nr)
+    torch.cuda.synchronize()
+    d = (out.float() - ref.float()).abs()
+    ulp = (d / (BF16_ULP * ref.float().abs().clamp(min=1.0))).max().item()
+    stats_rel = max(((s - rs).abs() / rs.abs().clamp(min=1e-30)).max().item(),
+                    ((ss - rss).abs() / rss.abs().clamp(min=1e-30)).max().item())
+    same = bool(torch.equal(s, s2) and torch.equal(ss, ss2) and torch.equal(out, out2))
+    return {"max_abs_err": d.max().item(), "max_err_in_bf16_ulps": ulp,
+            "stats_max_rel_err": stats_rel, "stats_rtol": STATS_RTOL,
+            "second_launch_identical": same,
+            "ok": ulp <= 1.0 and stats_rel <= STATS_RTOL and same}
+
+
 def _trunk_kernels(params, rng, cases) -> dict:
     """conv5x5_maxout and gemm_maxout against their plain versions, with the
     main path's weights (block 0's conv, the input layer) packed as the bf16
@@ -485,21 +518,10 @@ def _trunk_kernels(params, rng, cases) -> dict:
         worst_ulp, worst_abs = 0.0, 0.0
         for batch, l, nres in (DIFF_CASES if kind == "conv5x5_maxout" else TRUNK_CASES):
             x, nr = inputs(kind, batch, l, nres)
-            out, s, ss = kernel(x, w, b, nr)
-            out2, s2, ss2 = kernel(x, w, b, nr)
-            ref, rs, rss = plain(x, w, b, nr)
-            torch.cuda.synchronize()
-            d = (out.float() - ref.float()).abs()
-            ulp = (d / (BF16_ULP * ref.float().abs().clamp(min=1.0))).max().item()
-            stats_rel = max(((s - rs).abs() / rs.abs().clamp(min=1e-30)).max().item(),
-                            ((ss - rss).abs() / rss.abs().clamp(min=1e-30)).max().item())
-            same = bool(torch.equal(s, s2) and torch.equal(ss, ss2) and torch.equal(out, out2))
-            worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, d.max().item())
-            cases.append({"kernel": kind, "case": f"B={batch} L={l} nres={nres}",
-                          "max_abs_err": d.max().item(), "max_err_in_bf16_ulps": ulp,
-                          "stats_max_rel_err": stats_rel, "stats_rtol": STATS_RTOL,
-                          "second_launch_identical": same,
-                          "ok": ulp <= 1.0 and stats_rel <= STATS_RTOL and same})
+            case = _trunk_check(kernel, plain, x, w, b, nr)
+            worst_ulp = max(worst_ulp, case["max_err_in_bf16_ulps"])
+            worst_abs = max(worst_abs, case["max_abs_err"])
+            cases.append({"kernel": kind, "case": f"B={batch} L={l} nres={nres}", **case})
         # timing at the main path's shape: B 1, L 88, nres 82
         x, nr = inputs(kind, *TRUNK_CASES[0])
         ms = device_ms(lambda: kernel(x, w, b, nr), f"{kind}_kernel", reps=50)
@@ -724,6 +746,7 @@ def phase_fold(params, precision: str) -> tuple[dict, tuple]:
     """The main path: aln_to_coords on the card at the reference defaults."""
     from dmpfold2_tpu_torch import aln_to_coords
     from dmpfold2_tpu_torch.config import FoldConfig
+    from dmpfold2_tpu_torch.engine.fold import Folder
     from dmpfold2_tpu_torch.utils.pdb import format_pdb
 
     kw = dict(device="cuda", params=params, iterations=ITERATIONS, minsteps=MINSTEPS,
@@ -745,6 +768,18 @@ def phase_fold(params, precision: str) -> tuple[dict, tuple]:
         aln_to_coords(EXAMPLE_ALN, **kw)
         walls.append(time.perf_counter() - t0)
 
+    # the same fold on a held Folder (the serving case): the parameters
+    # uploaded and, in bf16, packed once, not per fold as aln_to_coords does
+    folder = Folder(params, device="cuda", precision=precision)
+    folder.fold(alnmat, iterations=ITERATIONS, minsteps=MINSTEPS)
+    held = []
+    for _ in range(FOLD_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        folder.fold(alnmat, iterations=ITERATIONS, minsteps=MINSTEPS)
+        held.append(time.perf_counter() - t0)
+    del folder
+
     lines = list(format_pdb(coords, confs, alnmat[0]))
     n_atoms = sum(line.startswith("ATOM") for line in lines)
     checks = {
@@ -758,12 +793,711 @@ def phase_fold(params, precision: str) -> tuple[dict, tuple]:
     emit({"phase": "fold", "precision": precision, "target": "PF10963",
           "shape": list(alnmat.shape), "iterations": ITERATIONS, "minsteps": MINSTEPS,
           "wall_s": wall, "wall_s_median": float(np.median(walls)), "wall_s_all": walls,
+          "held_folder_wall_s_median": float(np.median(held)), "held_folder_wall_s_all": held,
           "launches": launches, "expected_launches": expected,
           "mean_conf": float(confs.mean()), "checks": checks})
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{precision} fold checks failed: {failed}")
     return launches, (coords, confs)
+
+
+# ---------------------------------------------------------------- batch and serve
+#
+# Phase batch: the batch engine (BatchFolder, the CLI's -o mode) on 16
+# targets at full width, -n 10 -m 100, batch size 8: PF10963 and seven
+# seeded alignments in bucket 256 x 88, eight in bucket 256 x 256. Phase
+# serve: a bf16 FoldService over HTTP on the same card.
+
+BATCH_SIZE = 8
+BATCH_BUCKETS = ((N_PAD, L_PAD), (256, 256))
+BATCH_TIMED = 2  # timed fold_many runs per engine after the warm-up; the first is counted
+# batch against its own targets' single folds on the card, per engine: the
+# (model, (iterations, minsteps)) settings run, each with the targets it
+# holds ("all", a name, or None: recorded only) and the differences it
+# holds. A batch and a single fold differ only in the order of fp32 sums
+# (cuBLAS and cuDNN pick their kernels by shape), as the card and the CPU
+# do, so they get phase cpu's bounds: fp32 confidence 5e-4, CA 1e-2 A, atoms
+# 0.25 A; bf16 at -n 0 -m 0 confidence 0.025 and the trunk channels 17 x
+# 2^-8 of their scale. The model "random" is the seed-0 weights, whose CA
+# trace is collapsed (every pair closer than 3 A): there backbone
+# completion, refinement and the recycle's choice of its best pass turn
+# rounding into tenths of an A or whole A (PERF.md, Findings), so it is held
+# where the network's output is well conditioned (its CA trace and
+# confidences at -n 0 -m 0; PF10963, as phase cpu holds it, at -n 1 -m 10)
+# and the rest recorded; _batch_stages holds every target's refinement,
+# backbone completion and choice of its best pass on the batch's own
+# inputs. The model "spread" is the same weights with the coordinate head
+# scaled by HEAD_SCALE, as the CPU tests scale it (tests/test_torch_stream.py),
+# recorded only: at full width most of its CA pairs are still closer than
+# 3 A, batch and single fold part by up to 1e-3 A of CA at -n 0 -m 0, and
+# recycling and refinement amplify that to tenths of an A or more (PERF.md,
+# Findings).
+BATCH_CHECK = {
+    "fp32": (("random", (0, 0), "all", ("max_abs_conf", "max_abs_ca")),
+             ("random", (0, MINSTEPS // 10), None, ()),
+             ("random", (1, MINSTEPS // 10), "PF10963",
+              ("max_abs_conf", "max_abs_ca", "max_abs_atoms")),
+             ("spread", (0, 0), None, ()),
+             ("spread", (1, MINSTEPS // 10), None, ())),
+    "bf16": (("random", (0, 0), "all", ("max_abs_conf", "max_abs_dmap_channel",
+                                        "max_abs_conf_channel")),),
+}
+FP32_FOLD_TOLS = {"max_abs_conf": 5e-4, "max_abs_ca": 1e-2, "max_abs_atoms": 0.25}
+AA_TEXT = "ARNDCQEGHILKMFPSTWYVX-"  # class index -> aln letter
+SERVE_CLIENTS = 16
+
+
+def _batch_targets():
+    """PF10963, then seeded alignments: 7 more in bucket 256 x 88 (nseqs
+    129-252, nres 81-88) and 8 in bucket 256 x 256 (nseqs 129-256, nres
+    241-256); (name, alnmat) pairs."""
+    from dmpfold2_tpu_torch.utils.aln import parse_aln
+
+    rng = np.random.default_rng(7)
+    out = [("PF10963", parse_aln(EXAMPLE_ALN))]
+    for i, (seqs, res) in enumerate([((129, 253), (81, 89))] * 7 + [((129, 257), (241, 257))] * 8):
+        shape = (int(rng.integers(*seqs)), int(rng.integers(*res)))
+        out.append((f"seeded{i + 1}", rng.integers(0, 22, shape).astype(np.uint8)))
+    return out
+
+
+def _n_atoms(alnmat) -> int:
+    """ATOM records of a target's PDB: five per residue, no CB for glycine."""
+    from dmpfold2_tpu_torch.utils.aln import GLYCINE
+
+    return 5 * alnmat.shape[1] - int((alnmat[0] == GLYCINE).sum())
+
+
+def _fold_checks(coords, confs, alnmat) -> dict:
+    from dmpfold2_tpu_torch.utils.pdb import format_pdb
+
+    lines = list(format_pdb(coords, confs, alnmat[0]))
+    n_atoms = sum(line.startswith("ATOM") for line in lines)
+    return {"shape": coords.shape == (alnmat.shape[1], 5, 3),
+            "atoms": n_atoms == _n_atoms(alnmat),
+            "finite": bool(np.isfinite(coords).all() and np.isfinite(confs).all()),
+            "conf_in_0_1": bool(((confs >= 0) & (confs <= 1)).all())}
+
+
+@contextlib.contextmanager
+def _logged_events(store: list):
+    """Record the event of every log line the batch engine writes."""
+    from dmpfold2_tpu_torch.parallel import stream
+
+    orig = stream.log_target
+
+    def recording(*args, **kw):
+        store.append(kw.get("event", "target_folded"))
+        return orig(*args, **kw)
+
+    stream.log_target = recording
+    try:
+        yield
+    finally:
+        stream.log_target = orig
+
+
+@contextlib.contextmanager
+def _trunk_outputs(store: list):
+    """Record (input shape, output) of every bf16 trunk pass."""
+    from dmpfold2_tpu_torch.models import gruresnet
+
+    orig = gruresnet.trunk_apply_bf16
+
+    def recording(packed, x, mask):
+        out = orig(packed, x, mask)
+        store.append((tuple(x.shape), out.clone(), mask.clone()))
+        return out
+
+    gruresnet.trunk_apply_bf16 = recording
+    try:
+        yield
+    finally:
+        gruresnet.trunk_apply_bf16 = orig
+
+
+def _batch_vs_single(bf, params, targets, precision) -> dict:
+    """Four targets (PF10963, the shortest, one more per bucket) through the
+    batch at each BATCH_CHECK[precision] setting against their own single
+    folds on the same held Folder (``bf``'s for the model "random", one of
+    the head-scaled weights for "spread"); and the first five of bucket 256
+    x 88 as a partial batch (padded by repeating the fifth) against the full
+    batch at the first setting."""
+    from dmpfold2_tpu_torch.engine.buckets import bucket_shape
+    from dmpfold2_tpu_torch.parallel.stream import BatchFolder, Target
+
+    tgts = [Target(a) for _, a in targets]
+    by_bucket = [[i for i, (_, a) in enumerate(targets) if bucket_shape(*a.shape) == b]
+                 for b in BATCH_BUCKETS]
+    shortest = min(range(len(targets)), key=lambda i: targets[i][1].shape[1])
+    picked = list(dict.fromkeys([0, shortest] + [next(i for i in idx if i not in (0, shortest))
+                                                 for idx in by_bucket]))
+    folders = {"random": bf}
+    settings, failed, partial_rows = [], [], []
+    for model, (iterations, minsteps), held, held_keys in BATCH_CHECK[precision]:
+        if model not in folders:
+            folders[model] = BatchFolder(dict(params, coord_fc=params["coord_fc"] * HEAD_SCALE),
+                                         device="cuda", batch_size=BATCH_SIZE,
+                                         precision=precision)
+        mbf = folders[model]
+        batch_out, single_out = [], []
+        with _trunk_outputs(batch_out):
+            full = mbf.fold_many(tgts, iterations, minsteps)
+        rows = []
+        for i in picked:
+            name, alnmat = targets[i]
+            with _trunk_outputs(single_out):
+                c1, f1 = mbf.folder.fold(alnmat, iterations=iterations, minsteps=minsteps)
+            cb, fb = full[i]
+            row = {"target": name, "shape": list(alnmat.shape),
+                   "max_abs_conf": float(np.abs(fb - f1).max()),
+                   "max_abs_ca": float(np.abs(cb[:, 1] - c1[:, 1]).max()),
+                   "max_abs_atoms": float(np.abs(cb - c1).max()),
+                   "ca_pairs_closer_than_3A": float(
+                       (np.linalg.norm(c1[:, None, 1] - c1[None, :, 1], axis=-1) < 3.0).mean())}
+            if precision == "fp32":
+                tols = dict(FP32_FOLD_TOLS)
+            else:
+                tols = {"max_abs_conf": CONF_BF16_TOL}
+                # the target's slice of its batch's trunk pass against its own
+                bucket = bucket_shape(*alnmat.shape)
+                slot = by_bucket[BATCH_BUCKETS.index(bucket)].index(i)  # one batch per bucket
+                _, out_b, _ = next(o for o in batch_out if o[0][1] == bucket[1])
+                _, out_s, mask = single_out[-1]
+                valid = mask[0, ..., 0] > 0
+                for ch, label in ((0, "dmap"), (1, "conf")):
+                    ref = out_s[0, ..., ch][valid]
+                    scale = ref.abs().max().item()
+                    row[f"max_abs_{label}_channel"] = (out_b[slot, ..., ch][valid]
+                                                       - ref).abs().max().item()
+                    row[f"{label}_channel_scale"] = scale
+                    tols[f"max_abs_{label}_channel"] = TRUNK_BF16_REL * scale
+            row["tols"] = tols
+            row["held"] = list(held_keys) if held in ("all", name) else []
+            failed += [f"{model} -n {iterations} -m {minsteps} {name}: {k}"
+                       for k in row["held"] if not row[k] <= tols[k]]
+            rows.append(row)
+        settings.append({"model": model, "iterations": iterations, "minsteps": minsteps,
+                         "rows": rows})
+        if partial_rows:
+            continue
+        partial = mbf.fold_many([tgts[i] for i in by_bucket[0][:5]], iterations, minsteps)
+        for j, i in enumerate(by_bucket[0][:5]):
+            (pc, pf), (fc, ff) = partial[j], full[i]
+            row = {"target": targets[i][0],
+                   "identical": bool(np.array_equal(pc, fc) and np.array_equal(pf, ff)),
+                   "max_abs_conf": float(np.abs(pf - ff).max()),
+                   "max_abs_ca": float(np.abs(pc[:, 1] - fc[:, 1]).max())}
+            partial_rows.append(row)
+            if not (row["max_abs_conf"] <= rows[0]["tols"]["max_abs_conf"]
+                    and row["max_abs_ca"] <= FP32_FOLD_TOLS["max_abs_ca"]):
+                failed.append(f"partial batch {targets[i][0]}")
+    for mbf in folders.values():
+        if mbf is not bf:
+            mbf.close()
+    return {"vs_single": settings, "partial_batch": partial_rows, "failed": failed}
+
+
+BATCH_STAGES = (1, MINSTEPS // 10)  # (iterations, minsteps) of the stage holds
+
+
+def _batch_stages(bf, targets) -> dict:
+    """One fp32 fold_many at BATCH_STAGES, one batch at a time, recording
+    each batch's trunk outputs, refinements and backbone completion; then,
+    for every target of every batch, on the batch's own inputs: each
+    refinement the same bits as the target's own B 1 launch, backbone
+    completion the same bits as the target alone, and the returned
+    confidences those of the pass with the target's best mean confidence
+    (recomputed from the recorded trunk outputs by the same expression,
+    within 1e-6) with the coordinates the completion's."""
+    from dmpfold2_tpu_torch.engine.buckets import bucket_shape
+    from dmpfold2_tpu_torch.kernels import refine
+    from dmpfold2_tpu_torch.models import gruresnet
+    from dmpfold2_tpu_torch.parallel.stream import Target
+
+    rec = []
+    orig = (gruresnet.trunk_apply, refine.refine_coords_batched, gruresnet.calpha_to_main_chain)
+
+    def trunk(*args, **kw):
+        out = orig[0](*args, **kw)
+        rec.append(("trunk", out.clone()))
+        return out
+
+    def refine_rec(ca, n_steps, nres):
+        out = orig[1](ca, n_steps, nres)
+        rec.append(("refine", ca.clone(), n_steps, nres.clone(), out.clone()))
+        return out
+
+    def complete(ca, nres):
+        out = orig[2](ca, nres)
+        rec.append(("complete", ca.clone(), nres.clone(), out.clone()))
+        return out
+
+    gruresnet.trunk_apply, refine.refine_coords_batched = trunk, refine_rec
+    gruresnet.calpha_to_main_chain = complete
+    inflight, bf.max_inflight = bf.max_inflight, 1
+    try:
+        results = bf.fold_many([Target(a) for _, a in targets], *BATCH_STAGES)
+    finally:
+        gruresnet.trunk_apply, refine.refine_coords_batched = orig[0], orig[1]
+        gruresnet.calpha_to_main_chain = orig[2]
+        bf.max_inflight = inflight
+    # one record block per batch, in the order fold_many runs them: its
+    # trunk passes, two refinements and the completion
+    per_batch = 1 + BATCH_STAGES[0] + 2 + 1
+    groups, order = {}, []
+    for i, (_, a) in enumerate(targets):
+        groups.setdefault(bucket_shape(*a.shape), []).append(i)
+    for idx in groups.values():
+        order += [idx[k:k + BATCH_SIZE] for k in range(0, len(idx), BATCH_SIZE)]
+    if len(rec) != per_batch * len(order):
+        raise AssertionError(f"stages: {len(rec)} records for {len(order)} batches")
+    batches, failed = [], []
+    for n, chunk in enumerate(order):
+        block = rec[n * per_batch:(n + 1) * per_batch]
+        outs = [r[1] for r in block if r[0] == "trunk"]
+        refs = [r for r in block if r[0] == "refine"]
+        (_, ca_c, nres_c, atoms) = next(r for r in block if r[0] == "complete")
+        nres_f = nres_c.float()
+        row_mask = (torch.arange(ca_c.shape[1], device=ca_c.device)[None, :]
+                    < nres_c[:, None]).float()
+        confs = [(o[..., 1] * row_mask[:, None, :]).sum(dim=2) / nres_f[:, None] for o in outs]
+        means = [(c * row_mask).sum(dim=1) / nres_f for c in confs]
+        row = {"targets": [targets[i][0] for i in chunk], "refine_as_at_b1": True,
+               "complete_as_alone": True, "best_pass": [], "max_abs_conf_vs_best_pass": 0.0,
+               "coords_are_completion": True}
+        for b, ti in enumerate(chunk):
+            k = int(nres_c[b])
+            for _, ca, n_steps, nres, out in refs:
+                row["refine_as_at_b1"] &= torch.equal(
+                    orig[1](ca[b:b + 1].contiguous(), n_steps, nres[b:b + 1])[0], out[b])
+            row["complete_as_alone"] &= torch.equal(
+                orig[2](ca_c[b:b + 1], nres_c[b:b + 1])[0], atoms[b])
+            best = 0
+            for p in range(1, len(means)):
+                if means[p][b] > means[best][b]:
+                    best = p
+            row["best_pass"].append(best)
+            want = torch.sigmoid(confs[best][b, :k]).cpu().numpy()
+            coords, conf = results[ti]
+            row["max_abs_conf_vs_best_pass"] = max(row["max_abs_conf_vs_best_pass"],
+                                                   float(np.abs(conf - want).max()))
+            row["coords_are_completion"] &= bool(np.array_equal(coords,
+                                                                atoms[b, :k].cpu().numpy()))
+        row["ok"] = (row["refine_as_at_b1"] and row["complete_as_alone"]
+                     and row["coords_are_completion"] and row["max_abs_conf_vs_best_pass"] <= 1e-6)
+        batches.append(row)
+        if not row["ok"]:
+            failed.append(f"stages of batch {n}")
+    return {"iterations": BATCH_STAGES[0], "minsteps": BATCH_STAGES[1], "batches": batches,
+            "failed": failed}
+
+
+def _batch_kernel_shapes(params, rng) -> dict:
+    """Each inference kernel at the batch engine's shapes (bucket 256 x 256,
+    B 8, ragged lengths as phase batch's; refine also at B 16, two waves of
+    16-CTA clusters on 132 SMs): against its plain version on the same inputs
+    with the kernel phase's limits (the GRUs GRU_TOL; the trunk kernels one
+    bf16 ulp and their sums STATS_RTOL; refine REFINE_TOL at 100 steps where
+    its two plain versions agree that far, and step by step for every
+    target, each target the same bits as its own B 1 launch, padding
+    untouched), the same bits on a second launch; and its time (CUDA events
+    over back-to-back launches, each at least 0.3 ms, so the wrappers' host
+    time hides) and bound. Raises when a check fails."""
+    from dmpfold2_tpu_torch.kernels import conv_block, refine, rgru, vgru
+
+    dev = torch.device("cuda")
+    n_rows, l = BATCH_BUCKETS[1]
+    nres = [int(v) for v in rng.integers(241, 257, BATCH_SIZE)]
+    nseqs = [int(v) for v in rng.integers(129, 257, BATCH_SIZE)]
+    nres_t = torch.tensor(nres, dtype=torch.int32, device=dev)
+    out = {}
+
+    def held(fn, plain, tol):
+        """Two launches of ``fn`` against ``plain``: max |d|, same bits, ok."""
+        got, again, ref = fn(), fn(), plain()
+        e = (got - ref).abs().max().item()
+        same = bool(torch.equal(got, again))
+        return got, {"max_abs_err": e, "tol": tol, "second_launch_identical": same,
+                     "ok": e <= tol and same}
+
+    # vgru: B * L = 2048 columns, each at its target's depth
+    layers = [{k: v.to(dev) for k, v in p.items()} for p in params["vgru"]]
+    aln = torch.from_numpy(rng.integers(0, 22, (n_rows, BATCH_SIZE * l)).astype(np.int32)).to(dev)
+    depth = torch.tensor(nseqs, dtype=torch.int32, device=dev).repeat_interleave(l)
+    _, check = held(lambda: vgru.vgru_final_cols(layers, aln, depth),
+                    lambda: vgru.vgru_final_cols_plain(layers, aln, depth), GRU_TOL)
+    h = WIDTH
+    flops = 2 * 3 * h * 3 * h * float(depth.sum().item())
+    nbytes = 4 * (aln.numel() + depth.numel() + 22 * 3 * h + 3 * h * 3 * h + 4 * 3 * h
+                  + depth.numel() * h)
+    b, by = bound_ms(flops, nbytes)
+    out["vgru"] = {"shape": f"{n_rows} rows x {BATCH_SIZE * l} columns, depths {nseqs}",
+                   **check, "ms": time_ms(lambda: vgru.vgru_final_cols(layers, aln, depth), reps=3),
+                   "bound_ms": b, "bound_by": by}
+    # rgru: one biGRU layer of coord_gru, T 256, B 8, lengths nres
+    hid = WIDTH // 2
+    layer = {d: {k: v.to(dev) for k, v in params["coord_gru"][0][d].items()}
+             for d in ("fwd", "bwd")}
+    xf, xb = (torch.from_numpy(rng.normal(size=(l, BATCH_SIZE, 3 * hid)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    _, check = held(
+        lambda: rgru.gru_seq_bidir(layer["fwd"], layer["bwd"], xf, xb, nres_t),
+        lambda: rgru.gru_seq_bidir_plain(layer["fwd"], layer["bwd"], xf, xb, nres_t), GRU_TOL)
+    flops = 2 * (2 * hid * 3 * hid * sum(nres))
+    nbytes = 2 * 4 * (xf.numel() + hid * 3 * hid + 3 * hid + l * BATCH_SIZE * hid) + 4 * BATCH_SIZE
+    b, by = bound_ms(flops, nbytes)
+    out["rgru"] = {"shape": f"one biGRU layer, T {l}, B {BATCH_SIZE}, H {hid}, lengths {nres}",
+                   **check,
+                   "ms": time_ms(lambda: rgru.gru_seq_bidir(layer["fwd"], layer["bwd"], xf, xb,
+                                                            nres_t), reps=20),
+                   "bound_ms": b, "bound_by": by}
+    # refine: random walks at B 8 and B 16, L 256
+    shapes = {}
+    for batch in (BATCH_SIZE, 2 * BATCH_SIZE):
+        nr = (nres * 2)[:batch]
+        ca = torch.from_numpy(np.stack([_chain(l, rng) for _ in nr])).to(dev)
+        nr_t = torch.tensor(nr, dtype=torch.int32, device=dev)
+
+        def run(ca=ca, nr_t=nr_t):
+            return refine.refine_coords_batched(ca, MINSTEPS, nr_t)
+
+        got, again = run(), run()
+        ref = refine.refine_coords_batched_plain(ca, MINSTEPS, nr_t)
+        ref_cpu = refine.refine_coords_batched_plain(ca.cpu(), MINSTEPS, nr_t.cpu())
+        err = (got - ref).abs().amax(dim=(1, 2)).tolist()
+        plain_cpu = (ref_cpu - ref.cpu()).abs().amax(dim=(1, 2)).tolist()
+        # held at 100 steps: each target whose two plain versions (card, CPU)
+        # agree within REFINE_TOL; the others are ill-conditioned over 100
+        # steps (as the fold's trace of the kernel phase) and are held step
+        # by step, as every target is
+        at_100 = [e for e, c in zip(err, plain_cpu) if c <= REFINE_TOL]
+        check = {"max_abs_err": max(at_100), "tol": REFINE_TOL,
+                 "max_abs_err_by_target": err, "plain_cpu_vs_plain_by_target": plain_cpu,
+                 "held_at_100_steps": len(at_100),
+                 "stepwise_max_abs_err": _refine_stepwise_err(refine, ca, nr_t),
+                 "second_launch_identical": bool(torch.equal(got, again)),
+                 "each_target_as_at_b1": all(
+                     torch.equal(refine.refine_coords_batched(ca[i:i + 1], MINSTEPS,
+                                                              nr_t[i:i + 1])[0], got[i])
+                     for i in range(batch)),
+                 "padding_untouched": all(torch.equal(got[i, k:], ca[i, k:])
+                                          for i, k in enumerate(nr))}
+        check["ok"] = (check["max_abs_err"] <= REFINE_TOL
+                       and check["stepwise_max_abs_err"] <= REFINE_TOL
+                       and check["second_launch_identical"] and check["each_target_as_at_b1"]
+                       and check["padding_untouched"])
+        flops = MINSTEPS * REFINE_FLOP_PER_PAIR * sum(k * k for k in nr)
+        b, by = bound_ms(flops, 2 * 4 * ca.numel() + 4 * batch)
+        shapes[f"B {batch}"] = {**check, "ms": time_ms(run, reps=20), "bound_ms": b,
+                                "bound_by": by}
+    out["refine"] = {"shape": f"L {l}, {MINSTEPS} steps, random walks, nres {nres} (B 16: "
+                              "twice)", **shapes[f"B {BATCH_SIZE}"],
+                     "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+                     "ok": all(v["ok"] for v in shapes.values()), "shapes": shapes}
+    # the bf16 trunk kernels at B 8, L 256 with the main path's weights, on
+    # inputs that are zero outside each target's nres x nres, as the trunk's
+    trunk = params["trunk"]
+    conv_w, conv_b = conv_block.pack_conv5x5_weights(trunk["blocks"][0]["maxout"]["w"].to(dev),
+                                                     trunk["blocks"][0]["maxout"]["b"].to(dev))
+    k_pad = conv_block.gemm_k_pad(GEMM_K_IN)
+    gemm_w, gemm_b = conv_block.pack_gemm_weights(trunk["input"]["w"].to(dev),
+                                                  trunk["input"]["b"].to(dev), k_pad)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+    valid = (torch.arange(l, device=dev)[None, :] < nres_t[:, None]).to(torch.bfloat16)
+    npix = BATCH_SIZE * l * l
+    for kind, kernel, plain, w, bias, c_in, width, pool in (
+            ("conv5x5_maxout", conv_block.conv5x5_maxout_stats,
+             conv_block.conv5x5_maxout_stats_plain, conv_w, conv_b, CWIDTH, CWIDTH, 4),
+            ("gemm_maxout", conv_block.gemm_maxout_stats, conv_block.gemm_maxout_stats_plain,
+             gemm_w, gemm_b, GEMM_K_IN, k_pad, 3)):
+        x = torch.zeros((BATCH_SIZE, l, l, width), dtype=torch.bfloat16, device=dev)
+        x[..., :c_in] = (torch.randn((BATCH_SIZE, l, l, c_in), device=dev, generator=gen)
+                         .to(torch.bfloat16) * valid[:, :, None, None] * valid[:, None, :, None])
+        check = _trunk_check(kernel, plain, x, w, bias, nres_t)
+        c_out = bias.shape[0]
+        flops = 2.0 * npix * (w.numel() if kind == "conv5x5_maxout" else c_in * c_out)
+        nbytes = 2 * (x.numel() + w.numel() + npix * c_out // pool) + 4 * (c_out + BATCH_SIZE
+                                                                           * 2 * c_out // pool)
+        b, by = bound_ms(flops, nbytes, PEAK_BF16_TENSOR)
+        out[kind] = {"shape": f"B {BATCH_SIZE}, L {l}, nres {nres}", **check,
+                     "ms": time_ms(lambda x=x, w=w, bias=bias: kernel(x, w, bias, nres_t),
+                                   reps=20),
+                     "bound_ms": b, "bound_by": by}
+        del x
+    emit({"phase": "batch_kernel_shapes", "rows": out})
+    failed = [k for k, row in out.items() if not row["ok"]]
+    if failed:
+        raise AssertionError(f"kernels differ from their plain versions at the batch shapes: "
+                             f"{failed}")
+    return out
+
+
+def _host_syncs(bf, batch) -> list:
+    """The host synchronisations of one batch's fold (upload, forward,
+    fetch), on this thread, from torch's sync debug mode: each caller's
+    file:line in the port with its count."""
+    import warnings
+
+    from dmpfold2_tpu_torch.parallel import stream
+
+    aln_b, dmap_b, nseqs, nres = stream._pad_batch(batch, *BATCH_BUCKETS[0])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            stream._fold_batch(bf.folder, aln_b, dmap_b, nseqs, nres, ITERATIONS, MINSTEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counts: dict = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            counts[where] = counts.get(where, 0) + 1
+    return [{"where": k, "count": v} for k, v in sorted(counts.items(), key=lambda kv: -kv[1])]
+
+
+def phase_batch(params, precision: str) -> dict:
+    """The batch engine through BatchFolder.fold_many on the card; returns
+    the launch counts of its counted run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmpfold2_tpu_torch.engine.buckets import bucket_shape
+    from dmpfold2_tpu_torch.parallel.stream import BatchFolder, Target
+
+    targets = _batch_targets()
+    tgts = [Target(a) for _, a in targets]
+    bf = BatchFolder(params, device="cuda", batch_size=BATCH_SIZE, precision=precision)
+    # every log line of the phase: a batch that fails (and requeues) fails it
+    events: list = []
+    log = contextlib.ExitStack()
+    log.enter_context(_logged_events(events))
+    bf.fold_many(tgts, ITERATIONS, MINSTEPS)  # warm-up: cuDNN, cuSOLVER, allocator
+    walls = []
+    for k in range(BATCH_TIMED):
+        if k == 0:
+            _reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = bf.fold_many_async(tgts, ITERATIONS, MINSTEPS)
+        returned_s = time.perf_counter() - t0
+        results = pending.wait()
+        walls.append(time.perf_counter() - t0)
+        if k == 0:
+            launches = _read_counters()
+            counted = results
+            dispatch_return_s = returned_s
+    sizes = [sum(bucket_shape(*a.shape) == b for _, a in targets) for b in BATCH_BUCKETS]
+    n_batches = sum(-(-n // BATCH_SIZE) for n in sizes)
+    per_batch = {k: v / n_batches for k, v in launches.items()}
+    expected = dict(EXPECTED_LAUNCHES[precision])
+    checks = {"launches_per_batch": per_batch == expected,
+              "all_folded": all(r is not None for r in counted)}
+    for (name, alnmat), res in zip(targets, counted):
+        if res is None:
+            continue
+        for k, ok in _fold_checks(res[0], res[1], alnmat).items():
+            checks[f"{name} {k}"] = ok
+    # one batch at a time (max_inflight 1): each bucket's batch alone, the
+    # same bits as with two batches in flight
+    bf.max_inflight = 1
+    per_bucket, same_bits = {}, True
+    for bucket in BATCH_BUCKETS:
+        idx = [i for i, (_, a) in enumerate(targets) if bucket_shape(*a.shape) == bucket]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = bf.fold_many([tgts[i] for i in idx], ITERATIONS, MINSTEPS)
+        per_bucket[f"{bucket[0]}x{bucket[1]}"] = time.perf_counter() - t0
+        same_bits &= all(np.array_equal(a[0], counted[i][0]) and np.array_equal(a[1], counted[i][1])
+                         for a, i in zip(alone, idx))
+    checks["inflight_1_same_bits"] = same_bits
+    # a half batch (B 4) of bucket 256 x 88, alone: what the service's half
+    # batches cost against a full one
+    bf.batch_size = BATCH_SIZE // 2
+    half = [t for t, (_, a) in zip(tgts, targets)
+            if bucket_shape(*a.shape) == BATCH_BUCKETS[0]][:BATCH_SIZE // 2]
+    for _ in range(2):  # the first at B 4 is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf.fold_many(half, ITERATIONS, MINSTEPS)
+        half_batch_s = time.perf_counter() - t0
+    bf.batch_size = BATCH_SIZE
+    host_syncs = _host_syncs(bf, [tgts[i] for i, (_, a) in enumerate(targets)
+                                  if bucket_shape(*a.shape) == BATCH_BUCKETS[0]])
+    # the device idle share of one batch: bucket 256 x 256, B 8, alone
+    big = [t for t, (_, a) in zip(tgts, targets) if bucket_shape(*a.shape) == BATCH_BUCKETS[1]]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bf.fold_many(big, ITERATIONS, MINSTEPS)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    by_cat, kernel_launches, busy = {}, {}, 0.0
+    for name, count, ms in _device_kernels(prof):
+        cat = _category(name)
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        kernel_launches[cat] = kernel_launches.get(cat, 0) + count
+        busy += ms
+    bf.max_inflight = 2
+    check = _batch_vs_single(bf, params, targets, precision)
+    checks["vs_single_and_partial"] = not check["failed"]
+    if precision == "fp32":
+        check["stages"] = _batch_stages(bf, targets)
+        checks["stages_per_target"] = not check["stages"]["failed"]
+    bf.close()
+    log.close()
+    checks["no_batch_error"] = not any(e in ("batch_error", "target_error") for e in events)
+    emit({"phase": "batch", "precision": precision, "targets": len(targets),
+          "batch_size": BATCH_SIZE, "buckets": [list(b) for b in BATCH_BUCKETS],
+          "shapes": [list(a.shape) for _, a in targets], "iterations": ITERATIONS,
+          "minsteps": MINSTEPS, "wall_s": walls[0], "wall_s_all": walls,
+          "targets_per_s": len(targets) / walls[0],
+          "targets_per_s_all": [len(targets) / w for w in walls],
+          "fold_many_async_return_s": dispatch_return_s,
+          "per_batch_wall_s_inflight_1": per_bucket,
+          "half_batch_wall_s": {f"{BATCH_BUCKETS[0][0]}x{BATCH_BUCKETS[0][1]}": half_batch_s},
+          "inflight_1_wall_s": sum(per_bucket.values()),
+          "launches": launches, "launches_per_batch": per_batch, "expected_per_batch": expected,
+          "log_events": events, "host_syncs": host_syncs,
+          "profile_one_batch": {"bucket": list(BATCH_BUCKETS[1]), "wall_ms": prof_wall_ms,
+                                "device_busy_ms": busy, "idle_share": 1.0 - busy / prof_wall_ms,
+                                "by_category_ms": dict(sorted(by_cat.items(),
+                                                              key=lambda kv: -kv[1])),
+                                "launches_by_category": kernel_launches},
+          "check": check, "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{precision} batch checks failed: {failed}; {check['failed']}")
+    return launches
+
+
+def _aln_text(alnmat) -> str:
+    return "".join("".join(AA_TEXT[c] for c in row) + "\n" for row in alnmat)
+
+
+def phase_serve(params) -> dict:
+    """A bf16 FoldService on the card: 16 concurrent clients post PF10963 at
+    the defaults (half as text, half as JSON), then 16 more post phase
+    batch's mixed shapes; every response must be a whole PDB, requests must
+    coalesce. Returns the launch counts of the two rounds."""
+    import threading
+    import urllib.request
+
+    from dmpfold2_tpu_torch.serve import serve
+
+    targets = _batch_targets()
+    server = serve(params, host="127.0.0.1", port=0, precision="bf16", device="cuda",
+                   max_batch=BATCH_SIZE)
+    service = server.fold_service
+    t0 = time.perf_counter()
+    service.warmup(shapes=((N_PAD, L_PAD),))
+    warmup_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    query = f"iterations={ITERATIONS}&minsteps={MINSTEPS}"
+
+    def post(body: bytes, json_form: bool):
+        headers = {"Content-Type": "application/json"} if json_form else {}
+        req = urllib.request.Request(f"{url}/fold?{query}", data=body, method="POST",
+                                     headers=headers)
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read().decode(), time.perf_counter() - t
+
+    def round_of(bodies):
+        out = [None] * len(bodies)
+
+        def client(i):
+            try:
+                out[i] = post(*bodies[i])
+            except Exception as exc:  # noqa: BLE001 - reported in the checks
+                out[i] = (None, repr(exc), None)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+        del groups[:]
+        t = t_round[0] = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t
+        lat = sorted(r[2] for r in out if r[2] is not None)
+        return out, {"requests": len(bodies), "wall_s": wall, "req_per_s": len(bodies) / wall,
+                     "p50_s": float(np.percentile(lat, 50)) if lat else None,
+                     "p95_s": float(np.percentile(lat, 95)) if lat else None,
+                     "groups": [dict(g) for g in groups]}
+
+    # each group the dispatcher launches: its size, when it was launched and
+    # finished (seconds from the start of its round), and how long the
+    # launch held the dispatcher thread
+    groups, t_round = [], [0.0]
+    launch_group = service._launch_group
+
+    def recording(iterations, minsteps, reqs):
+        t = time.perf_counter()
+        fin = launch_group(iterations, minsteps, reqs)
+        row = {"size": len(reqs), "launched_s": t - t_round[0],
+               "launch_held_s": time.perf_counter() - t}
+        groups.append(row)
+        if fin is None:
+            return None
+
+        def finish():
+            fin()
+            row["finished_s"] = time.perf_counter() - t_round[0]
+
+        return finish
+
+    service._launch_group = recording
+    pf_text = _aln_text(targets[0][1])
+    rounds, checks = {}, {}
+    _reset_counters()
+    def body(text: str, i: int):
+        """Request i: text for even i, the JSON form for odd i."""
+        if i % 2:
+            return json.dumps({"aln": text}).encode(), True
+        return text.encode(), False
+
+    same = [body(pf_text, i) for i in range(SERVE_CLIENTS)]
+    out, rounds["PF10963 x 16"] = round_of(same)
+    checks["PF10963 all 200"] = all(r[0] == 200 for r in out)
+    checks["PF10963 406 ATOM lines"] = all(
+        r[0] == 200 and sum(line.startswith("ATOM") for line in r[1].splitlines()) == 406
+        for r in out)
+    mixed = [body(_aln_text(a), i) for i, (_, a) in enumerate(targets)]
+    out, rounds["mixed x 16"] = round_of(mixed)
+    launches = _read_counters()
+    checks["mixed all 200"] = all(r[0] == 200 for r in out)
+    checks["mixed whole PDBs"] = all(
+        r[0] == 200 and sum(line.startswith("ATOM") for line in r[1].splitlines()) == _n_atoms(a)
+        for r, (_, a) in zip(out, targets))
+    with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
+        checks["healthz"] = resp.status == 200
+    with urllib.request.urlopen(f"{url}/stats", timeout=60) as resp:
+        stats = json.loads(resp.read())
+    batching = stats["batching"]
+    checks["coalesced"] = batching["max_coalesced"] >= 2
+    checks["fewer_dispatches_than_requests"] = batching["dispatches"] < batching["requests"]
+    checks["launched_every_inference_kernel"] = all(
+        launches[k] > 0 for k in ("vgru", "rgru", "refine", "conv5x5_maxout", "gemm_maxout"))
+    server.shutdown()
+    service.close()
+    server.server_close()
+    thread.join(timeout=60)
+    service._thread.join(timeout=60)
+    service._finish_thread.join(timeout=60)
+    service.batcher.close()
+    checks["closed"] = not (thread.is_alive() or service._thread.is_alive()
+                            or service._finish_thread.is_alive())
+    emit({"phase": "serve", "precision": "bf16", "max_batch": BATCH_SIZE, "warmup_s": warmup_s,
+          "rounds": rounds, "stats": stats, "launches": launches,
+          "errors": [r[1][:200] for r in out if r[0] != 200], "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve checks failed: {failed}")
+    return launches
 
 
 # kernel-name fragments -> category, first match wins
@@ -776,6 +1510,24 @@ PROFILE_CATEGORIES = (
     ("linalg", ("syev", "potr", "trsm", "trtri", "sytr", "orm", "larf", "stedc", "steqr",
                 "lascl", "lansy", "geqr", "cusolver", "syrk", "chol")),
 )
+
+
+def _device_kernels(prof) -> list:
+    """(name, launches, device ms) of each CUDA kernel in a torch.profiler
+    run, the longest first."""
+    kernels = []
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0.0)
+            kernels.append((evt.key, evt.count, us / 1e3))
+    return sorted(kernels, key=lambda k: -k[2])
+
+
+def _category(name: str) -> str:
+    return next((c for c, frags in PROFILE_CATEGORIES if any(f in name.lower() for f in frags)),
+                "other")
 
 
 def phase_profile(params, precision: str) -> None:
@@ -793,22 +1545,15 @@ def phase_profile(params, precision: str) -> None:
         aln_to_coords(EXAMPLE_ALN, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = getattr(evt, "self_cuda_time_total", 0.0)
-            kernels.append((evt.key, evt.count, us / 1e3))
+    kernels = _device_kernels(prof)
     by_cat: dict[str, float] = {}
     names: dict[str, list] = {}
-    for name, count, ms in sorted(kernels, key=lambda k: -k[2]):
-        cat = next((c for c, frags in PROFILE_CATEGORIES
-                    if any(f in name.lower() for f in frags)), "other")
+    for name, count, ms in kernels:
+        cat = _category(name)
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
         names.setdefault(cat, []).append({"name": name[:90], "count": count, "ms": ms})
     busy = sum(ms for *_, ms in kernels)
-    top = sorted(kernels, key=lambda k: -k[2])[:12]
+    top = kernels[:12]
     emit({"phase": "profile", "precision": precision, "wall_ms": wall_ms,
           "device_busy_ms": busy,
           "idle_share": (1.0 - busy / wall_ms) if wall_ms else None,
@@ -1380,18 +2125,28 @@ def main() -> None:
     capture = phase_cpu_bf16(params)
     phase_trunk(capture)
     phase_cpu(params)
+    paths = {f"fold {p}": launches[p] for p in ("fp32", "bf16")}
+    for precision in ("fp32", "bf16"):
+        paths[f"batch {precision}"] = phase_batch(params, precision)
+    paths["serve bf16"] = phase_serve(params)
+    batch_shapes = _batch_kernel_shapes(params, np.random.default_rng(11))
     with tempfile.TemporaryDirectory() as data_dir:
         _write_train_data(data_dir, np.random.default_rng(1))
         launches["train"] = {"conv5x5_maxout_diff": phase_train(params, data_dir)}
+        paths["train bf16"] = launches["train"]
         phase_train_cpu(params, data_dir)
     for name, row in rows.items():
         # each kernel's count from the run whose path it carries: the fp32
         # fold (vgru, rgru, refine), the bf16 fold (the two trunk kernels),
-        # the training micro-steps (the argmax mode and its backward)
+        # the training micro-steps (the argmax mode and its backward); and
+        # its count in every path that launches it, each counted from 0
         engine = {"conv5x5_maxout": "bf16", "gemm_maxout": "bf16",
                   "conv5x5_maxout_diff": "train"}.get(name, "fp32")
         row["launches"] = launches[engine][name]
+        row["launches_by_path"] = {p: c[name] for p, c in paths.items() if c.get(name)}
         row["kernel_ms"] = row["ms"]
+        if name in batch_shapes:
+            row["batch_shape"] = batch_shapes[name]
     print(info["nvidia_smi"], flush=True)
     emit({"kernels": list(rows.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -1,6 +1,7 @@
 """The folding engine: from an MSA to a structure on one device.
 
-Counterpart of ``dmpfold2_tpu/engine/fold.py`` for the single-target fold in
+Counterpart of ``dmpfold2_tpu/engine/fold.py`` for the single-target fold
+(and, in :func:`fold_padded_batch`, the batch engine's device body) in
 two engines: ``fp32`` and ``bf16`` (the trunk in bf16 with fp32
 accumulation; everything else as in fp32). Host code parses and pads;
 everything after runs on the chosen device: one-hot, reweighting, DCA, the
@@ -22,8 +23,9 @@ import numpy as np
 import torch
 
 from ..config import FoldConfig, check_precision
-from ..features.dca import dca_or_zero
+from ..features.dca import NUM_DCA_CHANNELS, dca_or_zero
 from ..features.msa import msa_one_hot, reweight
+from ..kernels import _build
 from ..models import gruresnet
 from ..utils import aln as aln_io
 from ..utils import pdb as pdb_io
@@ -63,20 +65,54 @@ def use_full_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def pair_features(alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor) -> torch.Tensor:
+    """(B, n_pad, l_pad) int32 alignments, per-target sizes (sequences of
+    ints), (B, l_pad, l_pad) dmap channels -> (B, l_pad, l_pad, 443) pair
+    features [DCA 442 | dmap 1], one target at a time (the (21L)^2 DCA
+    inverse of a whole batch at once would need B times the memory; a single
+    sequence gives zero DCA)."""
+    batch, _, l_pad = alnmat.shape
+    x2 = torch.empty((batch, l_pad, l_pad, NUM_DCA_CHANNELS + 1), device=alnmat.device)
+    for b in range(batch):
+        oh = msa_one_hot(alnmat[b], nseqs[b], nres[b])
+        w = reweight(oh, nres[b])
+        x2[b, :, :, :NUM_DCA_CHANNELS] = dca_or_zero(oh, w, nseqs[b], nres[b])
+        del oh
+    x2[..., NUM_DCA_CHANNELS] = dmap_channel
+    return x2
+
+
+def fold_padded_batch(params, alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor,
+                      nloops: int, refine_steps: int, adaptive: bool = False,
+                      precision: str = "fp32"):
+    """(B, n_pad, l_pad) int32 alignments of one bucket on the device,
+    per-target sizes (sequences of ints), (B, l_pad, l_pad) dmap channels ->
+    (coords (B, l_pad, 5, 3), confidences (B, l_pad), recycles run).
+    ``params`` as ``gruresnet.pack_params`` gives them for ``precision``."""
+    x2 = pair_features(alnmat, nseqs, nres, dmap_channel)
+    return gruresnet.forward_inference(params, alnmat, x2, nseqs, nres, nloops, refine_steps,
+                                       adaptive_recycle=adaptive,
+                                       adaptive_patience=AUTO_PATIENCE, precision=precision)
+
+
 def fold_padded(params, alnmat: torch.Tensor, nseqs: int, nres: int,
                 dmap_channel: torch.Tensor, nloops: int, refine_steps: int,
                 adaptive: bool = False, precision: str = "fp32"):
     """(n_pad, l_pad) int32 alignment on the device -> (coords (l_pad, 5, 3),
-    confidences (l_pad,), recycles run). ``params`` as
-    ``gruresnet.pack_params`` gives them for ``precision``."""
-    oh = msa_one_hot(alnmat, nseqs, nres)
-    w = reweight(oh, nres)
-    dca = dca_or_zero(oh, w, nseqs, nres)
-    x2 = torch.cat([dca, dmap_channel[:, :, None]], dim=2)
-    del oh, dca
-    return gruresnet.forward(params, alnmat, x2, nseqs, nres, nloops, refine_steps,
-                             adaptive_recycle=adaptive, adaptive_patience=AUTO_PATIENCE,
-                             precision=precision)
+    confidences (l_pad,), recycles run): :func:`fold_padded_batch` at B 1."""
+    coords, confs, used = fold_padded_batch(params, alnmat[None], [nseqs], [nres],
+                                            dmap_channel[None], nloops, refine_steps,
+                                            adaptive=adaptive, precision=precision)
+    return coords[0], confs[0], used
+
+
+def pad_target(alnmat: np.ndarray, template_ca: np.ndarray | None, n_pad: int, l_pad: int):
+    """One target's host inputs at its bucket's shape: the (n_pad, l_pad)
+    int32 alignment and the (l_pad, l_pad) dmap channel."""
+    nseqs, nres = alnmat.shape
+    aln_p = np.zeros((n_pad, l_pad), np.int32)
+    aln_p[:nseqs, :nres] = alnmat
+    return aln_p, _build_dmap_channel(l_pad, nres, template_ca)
 
 
 def _build_dmap_channel(l_pad: int, nres: int, template_ca: np.ndarray | None) -> np.ndarray:
@@ -126,20 +162,19 @@ class Folder:
 
     def fold_async(self, alnmat: np.ndarray, template_ca: np.ndarray | None = None,
                    iterations=DEFAULT_ITERATIONS, minsteps: int = DEFAULT_MINSTEPS):
-        """Enqueue one fold; returns a callable that fetches
+        """Run one fold on the calling thread; returns a callable that fetches
         ``(coords, confs, recycles run)`` to the host.
 
-        With a fixed ``iterations`` the device work is enqueued without a host
-        round trip per recycle; ``"auto"`` reads each recycle's confidence on
-        the host to decide whether to go on.
+        This does not return before the device has run most of the fold:
+        ``torch.linalg.eigh`` waits for its status on the host once per trunk
+        pass, and ``"auto"`` also reads each recycle's confidence to decide
+        whether to go on. To keep a thread free, fold through
+        ``parallel.stream.BatchFolder``, whose workers run the batches.
         """
         adaptive = iterations == "auto"
         nloops = AUTO_ITERATIONS_CAP if adaptive else max(int(iterations), 0)
         nseqs, nres = alnmat.shape
-        n_pad, l_pad = bucket_shape(nseqs, nres)
-        aln_p = np.zeros((n_pad, l_pad), np.int32)
-        aln_p[:nseqs, :nres] = alnmat
-        dmap = _build_dmap_channel(l_pad, nres, template_ca)
+        aln_p, dmap = pad_target(alnmat, template_ca, *bucket_shape(nseqs, nres))
         with torch.inference_mode():
             coords, confs, used = fold_padded(
                 self.params, torch.from_numpy(aln_p).to(self.device), nseqs, nres,
@@ -150,6 +185,20 @@ class Folder:
             return coords[:nres].cpu().numpy(), confs[:nres].cpu().numpy(), used
 
         return fetch
+
+    def warmup(self, shapes=((256, 96),), iterations: int = 1, minsteps: int = 1) -> None:
+        """Fold an all-zero alignment of each (nseqs, nres) shape once.
+
+        On a CUDA device this first builds every kernel (one nvcc per
+        source, all started together), then the folds create the cuBLAS,
+        cuDNN and cuSOLVER handles and fill the caching allocator for those
+        buckets, so the first real fold pays none of it.
+        """
+        if self.device.type == "cuda":
+            _build.build()
+        for nseqs, nres in shapes:
+            self.fold(np.zeros((nseqs, nres), np.uint8), iterations=iterations,
+                      minsteps=minsteps)
 
 
 def _default_weight_paths():

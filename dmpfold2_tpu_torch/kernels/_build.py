@@ -36,6 +36,7 @@ SIGNATURES = {
 }
 
 _lock = threading.Lock()
+count_lock = threading.Lock()  # the launch counters: batches in flight launch from threads
 _loaded: dict[str, ctypes.CDLL] = {}
 
 

@@ -233,7 +233,8 @@ def conv5x5_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torc
     tiles = -(-l_rows // CONV_TILE[0]) * -(-l_rows // CONV_TILE[1])
     result = _launch("conv5x5_maxout", "conv5x5_maxout_stats", x, w_packed, b_packed, nres,
                      tiles, CONV_POOL, CONV_C_IN)
-    conv_launches += 1
+    with _build.count_lock:
+        conv_launches += 1
     return result
 
 
@@ -277,7 +278,8 @@ def conv5x5_maxout_argmax(x: torch.Tensor, w_packed: torch.Tensor, b_packed: tor
         err = fn(x.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(), out.data_ptr(),
                  index.data_ptr(), batch, l_rows, CONV_C_IN, c_out, stream)
     torch.cuda.check_error(err)
-    conv_argmax_launches += 1
+    with _build.count_lock:
+        conv_argmax_launches += 1
     return out, index
 
 
@@ -387,7 +389,8 @@ def gemm_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.T
     tiles = -(-(l_rows * l_rows) // GEMM_TILE_M)
     result = _launch("gemm_maxout", "gemm_maxout_stats", x, w_packed, b_packed, nres, tiles,
                      GEMM_POOL, k_pad)
-    gemm_launches += 1
+    with _build.count_lock:
+        gemm_launches += 1
     return result
 
 

@@ -24,11 +24,6 @@ launches = 0  # kernel launches since the last reset
 MAX_L = (232448 // 16 - 2048) // 2  # 6240
 
 
-def refine_coords_plain(coords: torch.Tensor, n_steps: int, nres: int) -> torch.Tensor:
-    """Plain PyTorch version: ``geometry.refine_coords``, one step at a time."""
-    return geometry.refine_coords(coords, n_steps, nres)
-
-
 def refine_coords_batched_plain(coords: torch.Tensor, n_steps: int,
                                 nres: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the batch: ``geometry.refine_coords`` per target."""
@@ -67,23 +62,10 @@ def refine_coords_batched(coords: torch.Tensor, n_steps: int,
         stream = torch.cuda.current_stream(coords.device).cuda_stream
         err = fn(coords.data_ptr(), nres.data_ptr(), out.data_ptr(), batch, n, int(n_steps),
                  stream)
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     if err:
         raise RuntimeError(f"refine: launch failed with CUDA error {err} "
                            f"({torch.cuda.CudaError(err)}); the kernel needs one cluster of "
                            "16 blocks of 1024 threads to be resident")
     return out
-
-
-def refine_coords(coords: torch.Tensor, n_steps: int, nres: int) -> torch.Tensor:
-    """(L, 3) fp32 CA trace -> (L, 3) after ``n_steps`` steps; rows >= nres stay
-    put. On the card: :func:`refine_coords_batched` at B 1."""
-    if coords.device.type == "cpu":
-        return refine_coords_plain(coords, n_steps, nres)
-    n = coords.shape[0]
-    if coords.dim() != 2 or coords.shape[1] != 3:
-        raise ValueError(f"refine: coords must be (L, 3); got {tuple(coords.shape)}")
-    if not 0 <= nres <= n:
-        raise ValueError(f"refine: need 0 <= nres <= L; got L={n}, nres={nres}")
-    nres_t = torch.full((1,), nres, dtype=torch.int32, device=coords.device)
-    return refine_coords_batched(coords[None], n_steps, nres_t)[0]

@@ -81,7 +81,8 @@ def _launch(passes, col_valid: torch.Tensor, out: torch.Tensor, first_reverse: b
         err = fn(xf.data_ptr(), xb.data_ptr(), whf.data_ptr(), whb.data_ptr(), bhf.data_ptr(),
                  bhb.data_ptr(), col_valid.data_ptr(), out.data_ptr(), seq_len, batch, hidden,
                  len(passes), int(first_reverse), stream)
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     if err:
         raise RuntimeError(f"rgru: launch failed with CUDA error {err} "
                            f"({torch.cuda.CudaError(err)}); the kernel needs one cluster of 8 "

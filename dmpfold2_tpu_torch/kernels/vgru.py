@@ -85,13 +85,7 @@ def vgru_final_cols(layers, aln_cols: torch.Tensor, col_valid: torch.Tensor) -> 
                  l2["wh"].data_ptr(), l1["bi"].data_ptr(), l1["bh"].data_ptr(),
                  l2["bi"].data_ptr(), l2["bh"].data_ptr(), state.data_ptr(), out.data_ptr(),
                  stream)
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     torch.cuda.check_error(err)
     return out
-
-
-def vgru_final(layers, alnmat: torch.Tensor, valid_len: int) -> torch.Tensor:
-    """Single target: (N, L) alignment, true depth ``valid_len`` -> (L, H)."""
-    n_cols = alnmat.shape[1]
-    col_valid = torch.full((n_cols,), valid_len, dtype=torch.int32, device=alnmat.device)
-    return vgru_final_cols(layers, alnmat.to(torch.int32).contiguous(), col_valid)

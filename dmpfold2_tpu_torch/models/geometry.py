@@ -24,33 +24,36 @@ def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / n
 
 
-def mds_coords(dm: torch.Tensor, nres: int, n_dims: int = 8) -> torch.Tensor:
-    """Distance-map channel (L, L) -> top-``n_dims`` MDS embedding (L, n_dims).
+def mds_coords(dm: torch.Tensor, nres, n_dims: int = 8) -> torch.Tensor:
+    """Distance-map channel (..., L, L) -> top-``n_dims`` MDS embedding (..., L, n_dims).
 
-    Symmetrize, abs, Gram matrix from the first row/column, ``eigh``, the
-    largest eigenpairs. Padded rows/columns are zeroed and given distinct very
-    negative diagonal entries, so the valid block's spectrum is kept and the
-    padding eigenpairs sink below it. Eigenvector signs are made canonical
-    (largest-|component| positive), so LAPACK and cuSOLVER agree.
+    ``nres``: an int, or a tensor of the leading (batch) shape: each map's
+    true length. Symmetrize, abs, Gram matrix from the first row/column,
+    ``eigh`` (one call for the whole batch), the largest eigenpairs. Padded
+    rows/columns are zeroed and given distinct very negative diagonal
+    entries, so the valid block's spectrum is kept and the padding eigenpairs
+    sink below it. Eigenvector signs are made canonical (largest-|component|
+    positive), so LAPACK and cuSOLVER, and a batch and a single map, agree.
     """
     l_pad = dm.shape[-1]
-    dm = (0.5 * (dm + dm.T)).abs()
-    gram = 0.5 * (dm[0:1, :].square() + dm[:, 0:1].square() - dm.square())
-    col = torch.arange(l_pad, device=dm.device) < nres
-    gram = gram * (col[:, None] & col[None, :])
+    dm = (0.5 * (dm + dm.transpose(-1, -2))).abs()
+    gram = 0.5 * (dm[..., 0:1, :].square() + dm[..., :, 0:1].square() - dm.square())
+    idx = torch.arange(l_pad, device=dm.device)
+    col = idx < torch.as_tensor(nres, device=dm.device)[..., None]                # (..., L)
+    gram = gram * (col[..., :, None] & col[..., None, :])
     pad_diag = torch.where(col, torch.zeros((), device=dm.device),
-                           -(1e6 + torch.arange(l_pad, dtype=dm.dtype, device=dm.device)))
-    gram = gram + torch.diag(pad_diag)
+                           -(1e6 + idx.to(dm.dtype)))
+    gram = gram + torch.diag_embed(pad_diag)
     # a non-finite map (a training step on NaN inputs, which the step's guard
-    # then skips) gives NaN coordinates, as XLA's eigh does; torch's eigh
-    # would raise on the CPU instead, so it is handed zeros
-    finite = torch.isfinite(gram).all()
+    # then skips) gives NaN coordinates for its target, as XLA's eigh does;
+    # torch's eigh would raise on the CPU instead, so it is handed zeros
+    finite = torch.isfinite(gram).all(dim=-1).all(dim=-1)[..., None, None]
     w, v = torch.linalg.eigh(torch.where(finite, gram, 0.0))
-    w8 = w[-n_dims:].clamp(min=1e-8)
-    v8 = v[:, -n_dims:]
-    comp = v8.gather(0, v8.abs().argmax(dim=0, keepdim=True))[0]
+    w8 = w[..., -n_dims:].clamp(min=1e-8)
+    v8 = v[..., -n_dims:]
+    comp = v8.gather(-2, v8.abs().argmax(dim=-2, keepdim=True))                   # (..., 1, n)
     v8 = v8 * torch.where(comp < 0, -1.0, 1.0)
-    return torch.where(finite, v8 * torch.sqrt(w8), float("nan"))
+    return torch.where(finite, v8 * torch.sqrt(w8)[..., None, :], float("nan"))
 
 
 def refine_step(coords: torch.Tensor, valid: torch.Tensor, adj_valid: torch.Tensor) -> torch.Tensor:
@@ -84,30 +87,35 @@ def refine_coords(coords: torch.Tensor, n_steps: int, nres: int) -> torch.Tensor
     return coords
 
 
-def calpha_to_main_chain(ca: torch.Tensor, nres: int) -> torch.Tensor:
-    """Levitt-method backbone completion: (L, 3) CA trace -> (L, 5, 3) N/CA/C/O/CB.
+def calpha_to_main_chain(ca: torch.Tensor, nres) -> torch.Tensor:
+    """Levitt-method backbone completion: (..., L, 3) CA traces -> (..., L, 5, 3)
+    N/CA/C/O/CB.
 
-    The terminal dummy CAs are taken at the true chain end, so padded tails do
-    not take part (reference network.py:141-177).
+    ``nres``: an int, or a tensor of the leading (batch) shape. The terminal
+    dummy CAs are taken at each chain's true end, so padded tails do not take
+    part (reference network.py:141-177).
     """
-    l_pad = ca.shape[0]
-    last = nres - 1
+    l_pad = ca.shape[-2]
     idx = torch.arange(l_pad, device=ca.device)
+    last = torch.as_tensor(nres, device=ca.device).expand(ca.shape[:-2]) - 1      # (...)
 
     def take(i):
-        return ca[min(max(i, 0), l_pad - 1)]
+        """ca at row clamp(i, 0, L - 1) of each chain: (...) -> (..., 3)."""
+        i = i.clamp(0, l_pad - 1)[..., None, None].expand(*i.shape, 1, 3)
+        return ca.gather(-2, i)[..., 0, :]
 
     ca_last, ca_last1, ca_last2 = take(last), take(last - 1), take(last - 2)
+    ca0, ca1, ca2 = ca[..., 0, :], ca[..., 1, :], ca[..., 2, :]
 
     # dummy terminal CAs at 3.82 A along the local cross product
-    nterm = ca[0] + 3.82 * _normalize(torch.linalg.cross(ca[0] - ca[1], ca[2] - ca[1]))
+    nterm = ca0 + 3.82 * _normalize(torch.linalg.cross(ca0 - ca1, ca2 - ca1))
     cterm = ca_last + 3.82 * _normalize(
         torch.linalg.cross(ca_last - ca_last1, ca_last2 - ca_last1))
 
-    prev = torch.cat([nterm[None], ca[:-1]], dim=0)   # prev[i] = ca[i-1]
-    nxt = torch.cat([ca[1:], ca[-1:]], dim=0)         # nxt[i] = ca[i+1]
-    at_last = (idx == last)[:, None]
-    nxt = torch.where(at_last, cterm[None], nxt)
+    prev = torch.cat([nterm[..., None, :], ca[..., :-1, :]], dim=-2)   # prev[i] = ca[i-1]
+    nxt = torch.cat([ca[..., 1:, :], ca[..., -1:, :]], dim=-2)         # nxt[i] = ca[i+1]
+    at_last = (idx == last[..., None])[..., None]                        # (..., L, 1)
+    nxt = torch.where(at_last, cterm[..., None, :], nxt)
 
     vec_can = prev - ca
     vec_cac = nxt - ca
@@ -118,16 +126,17 @@ def calpha_to_main_chain(ca: torch.Tensor, nres: int) -> torch.Tensor:
 
     c_shift = mid + vec_can / 8.0 - crossv / 2.0
     o_shift = mid - 1.8 * crossv
-    c_next = torch.cat([c_shift[1:], c_shift[-1:]], dim=0)
-    o_next = torch.cat([o_shift[1:], o_shift[-1:]], dim=0)
+    c_next = torch.cat([c_shift[..., 1:, :], c_shift[..., -1:, :]], dim=-2)
+    o_next = torch.cat([o_shift[..., 1:, :], o_shift[..., -1:, :]], dim=-2)
 
-    cross_last = crossv[min(max(last, 0), l_pad - 1)]
+    lastc = last.clamp(0, l_pad - 1)[..., None, None].expand(*last.shape, 1, 3)
+    cross_last = crossv.gather(-2, lastc)[..., 0, :]
     mid_end = 0.5 * (cterm + ca_last)
     c_cterm = mid_end - (cterm - ca_last) / 8.0 + cross_last / 2.0
     o_cterm = mid_end + 2.0 * cross_last
 
-    coords_c = torch.where(at_last, c_cterm[None], c_next)
-    coords_o = torch.where(at_last, o_cterm[None], o_next)
+    coords_c = torch.where(at_last, c_cterm[..., None, :], c_next)
+    coords_o = torch.where(at_last, o_cterm[..., None, :], o_next)
 
     # CB via tetrahedral construction from N, C, CA
     vec_n_ca = ca - coords_n
@@ -143,4 +152,4 @@ def calpha_to_main_chain(ca: torch.Tensor, nres: int) -> torch.Tensor:
     sy = 1.5 * math.sin(ang) / norm(cross_nc)
     coords_cb = ca + sx * vec_ca_cb + sy * cross_nc
 
-    return torch.stack([coords_n, ca, coords_c, coords_o, coords_cb], dim=1)
+    return torch.stack([coords_n, ca, coords_c, coords_o, coords_cb], dim=-2)

@@ -1,7 +1,9 @@
 """GRUResNet: the folding network (MSA -> coordinates + confidence).
 
 Counterpart of ``dmpfold2_tpu/models/gruresnet.py:init_params``, ``forward``
-(inference) and ``forward_batched`` (training, :func:`forward_batched`):
+and ``forward_batched``: inference on a batch of targets
+(:func:`forward_inference`, and :func:`forward` at B 1) and training
+(:func:`forward_batched`):
 
   MSA rows --[2-layer GRU over rows, final state]--> (L, 512)
   --[2-layer biGRU over residues]--> mat1d --outer product--> (L, L, 512)
@@ -104,104 +106,141 @@ def pack_params(params, precision: str):
 def forward(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs: int, nres: int,
             nloops: int, refine_steps: int, *, adaptive_recycle: bool = False,
             adaptive_patience: int = 2, precision: str = "fp32"):
-    """Run the network.
+    """Run the network on one target: :func:`forward_inference` at B 1.
+
+    Args:
+      alnmat: (n_pad, l_pad) int residue classes (0-21), right-padded.
+      x2: (l_pad, l_pad, 443) pair features [DCA 442 | dmap seed 1].
+      nseqs, nres: true sizes.
+      Others as :func:`forward_inference`.
+
+    Returns:
+      coords (l_pad, 5, 3), confidence (l_pad,), and the recycles run (int).
+    """
+    coords, confs, iterations = forward_inference(
+        params, alnmat[None], x2[None], [nseqs], [nres], nloops, refine_steps,
+        adaptive_recycle=adaptive_recycle, adaptive_patience=adaptive_patience,
+        precision=precision)
+    return coords[0], confs[0], iterations
+
+
+def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
+                      nloops: int, refine_steps: int, *, adaptive_recycle: bool = False,
+                      adaptive_patience: int = 2, precision: str = "fp32"):
+    """Run the network on a batch of targets of one bucket, for inference.
+
+    The counterpart of the JAX ``forward_batched`` (:247-375) as the batch
+    engine runs it, with the kernel implementations (vgru, rgru, refine, and
+    in bf16 the fused trunk), and of the JAX ``forward`` at B 1: each kernel
+    is launched once for the whole batch, with per-target lengths.
 
     Args:
       params: from :func:`init_params` or ``weights.py``, on ``alnmat``'s
           device, through :func:`pack_params` for ``precision``.
-      alnmat: (n_pad, l_pad) int residue classes (0-21), right-padded.
-      x2: (l_pad, l_pad, 443) pair features [DCA 442 | dmap seed 1], zero
-          outside the valid block.
-      nseqs, nres: true sizes.
-      nloops: recycles; with ``adaptive_recycle`` a cap, stopping once the
-          best mean confidence has not improved for ``adaptive_patience``
-          recycles in a row (``-n auto``).
+      alnmat: (B, n_pad, l_pad) int residue classes (0-21), right-padded.
+      x2: (B, l_pad, l_pad, 443) pair features [DCA 442 | dmap seed 1], zero
+          outside each target's valid block.
+      nseqs, nres: per-target true sizes, sequences of ints.
+      nloops: recycles; with ``adaptive_recycle`` (B 1 only) a cap, stopping
+          once the best mean confidence has not improved for
+          ``adaptive_patience`` recycles in a row (``-n auto``).
       refine_steps: refinement steps, before and after recycling.
       precision: ``fp32``, or ``bf16``: the trunk in bf16 with fp32
           accumulation (``trunk.trunk_apply_bf16``); everything else fp32.
 
     Returns:
-      coords (l_pad, 5, 3), confidence (l_pad,), and the recycles run (int).
+      coords (B, l_pad, 5, 3), confidences (B, l_pad), and the recycles run.
+      Each target keeps the pass with its own best mean confidence.
     """
+    batch, n_rows, l_pad = alnmat.shape
+    if adaptive_recycle and batch != 1:
+        raise ValueError("adaptive recycling (-n auto) folds one target at a time")
     device = alnmat.device
-    l_pad = alnmat.shape[1]
-    row_mask = (torch.arange(l_pad, device=device) < nres).float()
-    pair_mask = row_mask[:, None] * row_mask[None, :]
-    valid = torch.full((1,), nres, dtype=torch.int32, device=device)  # residue GRU lengths
+    nres_t = torch.tensor([int(n) for n in nres], dtype=torch.int32, device=device)
+    nseqs_t = torch.tensor([int(n) for n in nseqs], dtype=torch.int32, device=device)
+    row_mask = (torch.arange(l_pad, device=device)[None, :] < nres_t[:, None]).float()  # (B, L)
+    pair_mask = row_mask[:, :, None] * row_mask[:, None, :]                           # (B, L, L)
+    nres_f = nres_t.float()
 
-    # MSA embedding: vertical GRU over rows, horizontal biGRU over residues
-    seq_embed = vgru.vgru_final(params["vgru"], alnmat, nseqs)                 # (L, 512)
-    mat1d = rgru.bigru_stack(params["hgru"], seq_embed[:, None, :], valid)[:, 0, :]
-    mat1d = mat1d * row_mask[:, None]
+    # MSA embedding: the vertical GRU over rows, columns = B * L residue
+    # positions, each frozen at its own target's depth; then the horizontal
+    # biGRU over residues, batch = targets
+    aln_cols = alnmat.to(torch.int32).permute(1, 0, 2).reshape(n_rows, batch * l_pad)
+    seq_embed = vgru.vgru_final_cols(params["vgru"], aln_cols.contiguous(),
+                                     nseqs_t.repeat_interleave(l_pad))               # (B*L, 512)
+    hin = seq_embed.reshape(batch, l_pad, -1).transpose(0, 1)                        # (L, B, 512)
+    mat1d = rgru.bigru_stack(params["hgru"], hin, nres_t).transpose(0, 1)
+    mat1d = mat1d * row_mask[..., None]                                               # (B, L, 512)
 
-    pair = mat1d[:, None, :] * mat1d[None, :, :]                               # (L, L, 512)
+    pair = mat1d[:, :, None, :] * mat1d[:, None, :, :]                           # (B, L, L, 512)
     if precision == "bf16":
         trunk_pass = _bf16_trunk_pass(params["trunk"], pair, x2, pair_mask)
     else:
-        resinp_base = torch.cat([pair, x2[:, :, :-1]], dim=2)                 # 954 channels
+        resinp_base = torch.cat([pair, x2[..., :-1]], dim=3)                         # 954 channels
 
         def trunk_pass(dmap_channel):
-            resinp = torch.cat([resinp_base, dmap_channel[:, :, None]], dim=2)
-            return trunk_apply(params["trunk"], resinp[None], pair_mask[None, :, :, None])[0]
+            resinp = torch.cat([resinp_base, dmap_channel[..., None]], dim=3)
+            return trunk_apply(params["trunk"], resinp, pair_mask[..., None])
     del pair
 
     def run_iteration(dmap_channel):
         out = trunk_pass(dmap_channel)
-        dm = out[:, :, 0]
-        conf = (out[:, :, 1] * row_mask[None, :]).sum(dim=1) / nres
-        mds = mds_coords(dm, nres)
-        coordembed = torch.cat([mat1d, mds], dim=1)                            # (L, 520)
-        gru_out = rgru.bigru_stack(params["coord_gru"], coordembed[:, None, :], valid)[:, 0, :]
-        return gru_out @ params["coord_fc"], conf                              # (L, 3), (L,)
+        dm = out[..., 0]
+        conf = (out[..., 1] * row_mask[:, None, :]).sum(dim=2) / nres_f[:, None]
+        mds = mds_coords(dm, nres_t)                                                  # (B, L, 8)
+        coordembed = torch.cat([mat1d, mds], dim=2).transpose(0, 1)                  # (L, B, 520)
+        gru_out = rgru.bigru_stack(params["coord_gru"], coordembed, nres_t).transpose(0, 1)
+        return gru_out @ params["coord_fc"], conf                             # (B, L, 3), (B, L)
 
     def mean_conf(conf):
-        return (conf * row_mask).sum() / nres
+        return (conf * row_mask).sum(dim=1) / nres_f                                  # (B,)
 
     # initial pass: dmap channel from x2 (template distances or -1 fill)
-    ca, conf = run_iteration(x2[:, :, -1])
-    ca = refine.refine_coords(ca.contiguous(), refine_steps, nres)
+    ca, conf = run_iteration(x2[..., -1])
+    ca = refine.refine_coords_batched(ca.contiguous(), refine_steps, nres_t)
     best_mean, best_conf, best_coords = mean_conf(conf), conf, ca
 
     # recycling: predicted distances fed back as the last input channel. The
-    # best pass is tracked on the device; only -n auto reads it on the host.
+    # best pass per target is tracked on the device; only -n auto reads it
+    # on the host.
     iterations, stall = 0, 0
     while iterations < nloops and stall < adaptive_patience:
-        diffs = ca[:, None, :] - ca[None, :, :]
-        dmap = torch.sqrt(torch.clamp(diffs.square().sum(dim=2), min=1e-8)) * pair_mask
+        diffs = ca[:, :, None, :] - ca[:, None, :, :]
+        dmap = torch.sqrt(torch.clamp(diffs.square().sum(dim=3), min=1e-8)) * pair_mask
         ca, conf = run_iteration(dmap)
         mean_new = mean_conf(conf)
         better = mean_new > best_mean
         best_mean = torch.where(better, mean_new, best_mean)
-        best_conf = torch.where(better, conf, best_conf)
-        best_coords = torch.where(better, ca, best_coords)
+        best_conf = torch.where(better[:, None], conf, best_conf)
+        best_coords = torch.where(better[:, None, None], ca, best_coords)
         iterations += 1
         if adaptive_recycle:
-            stall = 0 if bool(better) else stall + 1
+            stall = 0 if bool(better[0]) else stall + 1
 
-    best_coords = refine.refine_coords(best_coords.contiguous(), refine_steps, nres)
-    coords = calpha_to_main_chain(best_coords, nres)
+    best_coords = refine.refine_coords_batched(best_coords.contiguous(), refine_steps, nres_t)
+    coords = calpha_to_main_chain(best_coords, nres_t)
     return coords, torch.sigmoid(best_conf), iterations
 
 
 def _bf16_trunk_pass(packed, pair: torch.Tensor, x2: torch.Tensor, pair_mask: torch.Tensor):
-    """The bf16 engine's trunk input, built once: a (1, L, L, k_pad) bf16 map
+    """The bf16 engine's trunk input, built once: a (B, L, L, k_pad) bf16 map
     [pair | DCA 442 | dmap 1 | zeros to k_pad], the width the GEMM kernel
-    reads. Returns a function that writes a pass's dmap channel into its slot
-    (in place; passes run in stream order) and runs the trunk."""
+    reads. Returns a function that writes a pass's (B, L, L) dmap channel
+    into its slot (in place; passes run in stream order) and runs the trunk."""
     if not isinstance(packed, PackedTrunk):
         raise TypeError("precision='bf16' needs the trunk packed by "
                         "gruresnet.pack_params(params, 'bf16')")
-    l_pad, _, width = pair.shape
+    batch, l_pad, _, width = pair.shape
     slot = width + NUM_DCA_CHANNELS
-    resinp = torch.zeros((1, l_pad, l_pad, packed.k_pad), dtype=torch.bfloat16,
+    resinp = torch.zeros((batch, l_pad, l_pad, packed.k_pad), dtype=torch.bfloat16,
                          device=pair.device)
-    resinp[0, :, :, :width] = pair
-    resinp[0, :, :, width:slot] = x2[:, :, :-1]
-    mask = pair_mask[None, :, :, None]
+    resinp[..., :width] = pair
+    resinp[..., width:slot] = x2[..., :-1]
+    mask = pair_mask[..., None]
 
     def trunk_pass(dmap_channel):
-        resinp[0, :, :, slot] = dmap_channel
-        return trunk_apply_bf16(packed, resinp, mask)[0]
+        resinp[..., slot] = dmap_channel
+        return trunk_apply_bf16(packed, resinp, mask)
 
     return trunk_pass
 

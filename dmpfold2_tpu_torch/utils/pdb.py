@@ -19,17 +19,26 @@ ATOM_NAMES = (" N  ", " CA ", " C  ", " O  ", " CB ")
 
 def parse_template_ca(path: str) -> np.ndarray:
     """CA coordinates from fixed-column ATOM records -> (n, 3) float32."""
-    coords = []
     with open(path) as fh:
-        for line in fh:
-            if line[:4] == "ATOM" and line[12:16] == " CA ":
-                # primary conformer only: alternate-location records would
-                # duplicate residues
-                if len(line) > 16 and line[16] not in (" ", "A"):
-                    continue
-                coords.append([float(line[30:38]), float(line[38:46]), float(line[46:54])])
+        return parse_template_ca_lines(fh, origin=path)
+
+
+def parse_template_ca_text(text: str) -> np.ndarray:
+    """:func:`parse_template_ca` from PDB text in memory (an HTTP request's template)."""
+    return parse_template_ca_lines(text.splitlines(), origin="<text>")
+
+
+def parse_template_ca_lines(lines: Iterable[str], origin: str = "?") -> np.ndarray:
+    coords = []
+    for line in lines:
+        if line[:4] == "ATOM" and line[12:16] == " CA ":
+            # primary conformer only: alternate-location records would
+            # duplicate residues
+            if len(line) > 16 and line[16] not in (" ", "A"):
+                continue
+            coords.append([float(line[30:38]), float(line[38:46]), float(line[46:54])])
     if not coords:
-        raise ValueError(f"no CA atoms found in template {path}")
+        raise ValueError(f"no CA atoms found in template {origin}")
     return np.asarray(coords, dtype=np.float32)
 
 

@@ -17,10 +17,10 @@ package from its tree, builds that tree's kernels into its own
   has it, else two ``gru_seq`` launches, one per direction, summed;
 * the device time of gemm_maxout at B 1, L 88 (nres 82), the trunk's input
   layer with the tree's own weight packing;
-* the device time of one refine launch (``refine_coords``, 100 steps) on
-  the fp32 fold's own first input (``chip_smoke._fold_trace``, L 88, nres
-  82) and on random walks at L 88 (nres 82) and at the largest bucket, L 1536
-  (nres 1536);
+* the device time of one refine launch (``refine_coords_batched`` at B 1,
+  100 steps) on the fp32 fold's own first input (``chip_smoke._fold_trace``,
+  L 88, nres 82) and on random walks at L 88 (nres 82) and at the largest
+  bucket, L 1536 (nres 1536);
 * the fp32 and bf16 default folds of PF10963 (``chip_smoke.phase_fold``: five
   timed folds, exact launch counts) and their device time by category
   (``chip_smoke.phase_profile``).
@@ -118,13 +118,16 @@ def measure(tree: str) -> dict:
             lambda: conv_block.conv5x5_maxout_argmax(x, wp, bp), "conv5x5_maxout_argmax_kernel",
             reps=20)
 
-    fold_ca = cs._fold_trace(params)[0]
+    fold_ca = cs._fold_trace(params)
+    nr = torch.tensor([cs.NRES], dtype=torch.int32, device=dev)
     res["refine_ms_fold"] = cs.device_ms(
-        lambda: refine.refine_coords(fold_ca, cs.MINSTEPS, cs.NRES), "refine_kernel", reps=20)
+        lambda: refine.refine_coords_batched(fold_ca, cs.MINSTEPS, nr), "refine_kernel",
+        reps=20)
     for n, nres in ((cs.L_PAD, cs.NRES), (1536, 1536)):
-        ca = torch.from_numpy(cs._chain(n, np.random.default_rng(n))).to(dev)
+        ca = torch.from_numpy(cs._chain(n, np.random.default_rng(n))[None]).to(dev)
+        nr = torch.tensor([nres], dtype=torch.int32, device=dev)
         res[f"refine_ms_L{n}"] = cs.device_ms(
-            lambda: refine.refine_coords(ca, cs.MINSTEPS, nres), "refine_kernel",
+            lambda: refine.refine_coords_batched(ca, cs.MINSTEPS, nr), "refine_kernel",
             reps=20 if n == cs.L_PAD else 5)
 
     for precision in ("fp32", "bf16"):

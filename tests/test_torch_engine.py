@@ -39,6 +39,8 @@ PORT_MODULES = [
     "dmpfold2_tpu_torch.ops.dropout", "dmpfold2_tpu_torch.train.loss",
     "dmpfold2_tpu_torch.train.dataset", "dmpfold2_tpu_torch.train.checkpoint",
     "dmpfold2_tpu_torch.train.step", "dmpfold2_tpu_torch.train.loop",
+    "dmpfold2_tpu_torch.utils.obs", "dmpfold2_tpu_torch.parallel.stream",
+    "dmpfold2_tpu_torch.serve",
 ]
 
 
@@ -122,7 +124,6 @@ def test_no_weights_raises_without_download():
 
 @pytest.mark.parametrize("argv,match", [
     (["--precision", "fp32_strict"], "not yet ported"),
-    (["-o", "out"], "batch mode"),
 ])
 def test_cli_not_ported_options_raise(argv, match, toy_npz):
     with pytest.raises(NotImplementedError, match=match):
@@ -139,6 +140,106 @@ def test_cli_bf16_fold_writes_pdb(toy_npz, capsys):
     assert len(atoms) == 406  # PF10963: 82 residues x 5 atoms, less glycine CBs
     xyz = np.array([[float(a[30:38]), float(a[38:46]), float(a[46:54])] for a in atoms])
     assert np.isfinite(xyz).all()
+
+
+# ---------------------------------------------------------------- batch mode
+
+# three seeded alignments: two in bucket (16, 32), one in (16, 40)
+BATCH_SHAPES = {"a": (12, 20), "b": (9, 25), "c": (10, 40)}
+
+
+@pytest.fixture(scope="module")
+def batch_inputs(toy_tree, tmp_path_factory):
+    """The toy weights with ``coord_fc`` scaled by 256 (protein-like CA
+    spacing, as tests/test_torch_stream.py uses) and three alignment files."""
+    root = tmp_path_factory.mktemp("batch")
+    tree = dict(toy_tree, coord_fc=toy_tree["coord_fc"] * np.float32(256.0))
+    weights = str(root / "scaled.npz")
+    save_params(weights, tree)
+    rng = np.random.default_rng(5)
+    paths = []
+    for stem, shape in BATCH_SHAPES.items():
+        rows = rng.integers(0, 20, shape)
+        path = root / f"{stem}.aln"
+        path.write_text("".join("".join(aln.AA_ORDER[c] for c in row) + "\n" for row in rows))
+        paths.append(str(path))
+    return weights, paths
+
+
+def _pdb_atoms(lines):
+    atoms = [line for line in lines if line.startswith("ATOM")]
+    xyz = np.array([[float(a[30:38]), float(a[38:46]), float(a[46:54])] for a in atoms])
+    return xyz, np.array([float(a[60:66]) for a in atoms])
+
+
+def test_cli_batch_writes_one_pdb_per_input(batch_inputs, tmp_path, capsys):
+    """``-o`` with three inputs at --batch-size 2: one PDB each, equal to the
+    single-target CLI's within tests/test_torch_stream.py's batch-vs-single
+    bounds (confidence 1e-4, coordinates 1e-2 A) plus the PDB's rounding."""
+    weights, paths = batch_inputs
+    common = ["-d", "cpu", "-w", weights, "-n", "1", "-m", "10"]
+    run_dmpfold(["-i", *paths, "-o", str(tmp_path), "--batch-size", "2"] + common)
+    assert "folded 3/3 targets" in capsys.readouterr().err
+    for path, stem in zip(paths, BATCH_SHAPES):
+        run_dmpfold(["-i", path] + common)
+        single = capsys.readouterr().out.splitlines()
+        batch = (tmp_path / f"{stem}.pdb").read_text().splitlines()
+        assert batch[0].startswith("REMARK  CONF:") and batch[-1] == "END"
+        (bx, bb), (sx, sb) = _pdb_atoms(batch), _pdb_atoms(single)
+        assert bx.shape == sx.shape
+        np.testing.assert_allclose(bx, sx, atol=1e-2 + 1e-3)
+        np.testing.assert_allclose(bb, sb, atol=1e-4 + 1e-2)  # B-factor: 2 decimals
+
+
+@pytest.mark.parametrize("case,match", [
+    ("duplicate stems", "duplicate output stems"),
+    ("template count", "templates for 3 inputs"),
+    ("template length", "lengths must match"),
+    ("auto", "single-target only"),
+])
+def test_cli_batch_input_errors(batch_inputs, tmp_path, capsys, case, match):
+    weights, paths = batch_inputs
+    argv = ["-i", *paths, "-o", str(tmp_path / "out"), "-d", "cpu", "-w", weights]
+    if case == "duplicate stems":
+        other = tmp_path / "a.aln"
+        other.write_text(open(paths[0]).read())
+        argv[1:4] = [paths[0], str(other), paths[1]]
+    elif case == "template count":
+        argv += ["-t", EXAMPLE_PDB, "-"]
+    elif case == "template length":
+        argv += ["-t", EXAMPLE_PDB, "-", "-"]
+    else:
+        argv += ["-n", "auto"]
+    with pytest.raises(SystemExit) as exc:
+        run_dmpfold(argv)
+    assert exc.value.code == 2
+    assert match in capsys.readouterr().err
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_batch_failed_target_exits_1(batch_inputs, tmp_path, capsys, monkeypatch):
+    from dmpfold2_tpu_torch.parallel import stream
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("injected failure")
+
+    weights, paths = batch_inputs
+    real_single = stream.BatchFolder._fold_single
+
+    def fail_b(self, target, *a):
+        if target.alnmat.shape == BATCH_SHAPES["b"]:
+            raise RuntimeError("injected single failure")
+        return real_single(self, target, *a)
+
+    monkeypatch.setattr(stream, "_fold_batch", fail)
+    monkeypatch.setattr(stream.BatchFolder, "_fold_single", fail_b)
+    with pytest.raises(SystemExit) as exc:
+        run_dmpfold(["-i", *paths, "-o", str(tmp_path), "-d", "cpu", "-w", weights, "-n", "0",
+                     "-m", "0"])
+    assert exc.value.code == 1
+    err = capsys.readouterr().err
+    assert "folded 2/3 targets" in err and f"FAILED: {paths[1]}" in err
+    assert sorted(os.listdir(tmp_path)) == ["a.pdb", "c.pdb"]
 
 
 def _run_smoke(cwd, script):

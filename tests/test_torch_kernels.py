@@ -71,8 +71,9 @@ def test_vgru_plain_single_target_padding(vgru_layers):
     padded = np.zeros((24, 10), np.int32)
     padded[:15] = aln
     layers = _torch_tree(vgru_layers)
-    base = vgru.vgru_final(layers, torch.from_numpy(aln), 15).numpy()
-    ours = vgru.vgru_final(layers, torch.from_numpy(padded), 15).numpy()
+    depth = torch.full((10,), 15, dtype=torch.int32)  # the target's depth in every column
+    base = vgru.vgru_final_cols(layers, torch.from_numpy(aln), depth).numpy()
+    ours = vgru.vgru_final_cols(layers, torch.from_numpy(padded), depth).numpy()
     np.testing.assert_array_equal(ours, base)
     from dmpfold2_tpu.kernels.vgru import vgru_final_pallas
 
@@ -207,7 +208,8 @@ def _chain(l, seed, scale=4.0):
                                           (88, 82, 30)])
 def test_refine_plain_matches_pallas_and_xla(l, nres, steps):
     ca = _chain(l, seed=l)
-    ours = refine.refine_coords(torch.from_numpy(ca), steps, nres).numpy()
+    ours = refine.refine_coords_batched(torch.from_numpy(ca[None]), steps,
+                                        torch.tensor([nres], dtype=torch.int32))[0].numpy()
     xla = np.asarray(jax_geometry.refine_coords(jnp.asarray(ca), jnp.asarray(steps), nres))
     pallas = np.asarray(refine_coords_pallas(jnp.asarray(ca), jnp.asarray(steps), nres,
                                              interpret=True))
@@ -218,7 +220,7 @@ def test_refine_plain_matches_pallas_and_xla(l, nres, steps):
 
 @pytest.mark.parametrize("l,steps,nres,seeds", [
     (40, 20, [40, 23, 1], (3, 4, 5)),  # a full target, a padded one, a single residue
-    (50, 15, [44], (6,)),              # B 1, as the single-target wrapper launches it
+    (50, 15, [44], (6,)),              # B 1, as the single fold launches it
 ])
 def test_refine_batched_plain_matches_vmapped_pallas_and_xla(l, steps, nres, seeds):
     """The batched plain version against the JAX package's vmap of the
@@ -234,21 +236,17 @@ def test_refine_batched_plain_matches_vmapped_pallas_and_xla(l, steps, nres, see
         np.testing.assert_allclose(ours[b], xla, atol=REFINE_TOL)
         np.testing.assert_allclose(ours[b], pallas[b], atol=REFINE_TOL)
         np.testing.assert_array_equal(ours[b, n:], ca[b, n:])  # padding stays put
-    if len(nres) == 1:  # the single-target wrapper's path
-        np.testing.assert_array_equal(
-            refine.refine_coords(torch.from_numpy(ca[0]), steps, int(nres[0])).numpy(), ours[0])
 
 
 @pytest.mark.parametrize("batched", [False, True])
 def test_refine_plain_zero_steps_identity(batched):
+    """Zero steps leave the traces as they are: one target (B 1, the single
+    fold's launch) or a batch of two."""
     ca = _chain(33, seed=2)
-    if batched:
-        out = refine.refine_coords_batched(torch.from_numpy(np.stack([ca, ca])), 0,
-                                           torch.tensor([33, 20], dtype=torch.int32))
-        np.testing.assert_array_equal(out.numpy(), np.stack([ca, ca]))
-    else:
-        np.testing.assert_array_equal(refine.refine_coords(torch.from_numpy(ca), 0, 33).numpy(),
-                                      ca)
+    cas, nres = (np.stack([ca, ca]), [33, 20]) if batched else (ca[None], [33])
+    out = refine.refine_coords_batched(torch.from_numpy(cas), 0,
+                                       torch.tensor(nres, dtype=torch.int32))
+    np.testing.assert_array_equal(out.numpy(), cas)
 
 
 def test_refine_limit_covers_every_bucket():
@@ -267,18 +265,19 @@ def test_refine_limit_covers_every_bucket():
 
 def test_refine_plain_padded_matches_unpadded():
     ca = _chain(40, seed=9)
-    base = refine.refine_coords(torch.from_numpy(ca), 30, 40).numpy()
-    ca_pad = np.zeros((70, 3), np.float32)
-    ca_pad[:40] = ca
-    padded = refine.refine_coords(torch.from_numpy(ca_pad), 30, 40).numpy()
+    nres = torch.tensor([40], dtype=torch.int32)
+    base = refine.refine_coords_batched(torch.from_numpy(ca[None]), 30, nres)[0].numpy()
+    ca_pad = np.zeros((1, 70, 3), np.float32)
+    ca_pad[0, :40] = ca
+    padded = refine.refine_coords_batched(torch.from_numpy(ca_pad), 30, nres)[0].numpy()
     np.testing.assert_allclose(padded[:40], base, atol=1e-5)
 
 
 def test_cpu_wrappers_do_not_launch(vgru_layers):
     before = (vgru.launches, rgru.launches, refine.launches)
-    refine.refine_coords(torch.zeros(4, 3), 2, 4)
     refine.refine_coords_batched(torch.zeros(2, 4, 3), 2, torch.tensor([4, 3], dtype=torch.int32))
-    vgru.vgru_final(_torch_tree(vgru_layers), torch.zeros((5, 3), dtype=torch.int32), 5)
+    vgru.vgru_final_cols(_torch_tree(vgru_layers), torch.zeros((5, 3), dtype=torch.int32),
+                         torch.full((3,), 5, dtype=torch.int32))
     stack = _torch_tree(_np_tree(jax_gru.bigru_stack_params(jax.random.PRNGKey(0), 1, 4, 16)))
     rgru.bigru_stack(stack, torch.zeros((3, 1, 4)), 3)
     assert (vgru.launches, rgru.launches, refine.launches) == before
@@ -312,7 +311,8 @@ def test_wrappers_reject_bad_input_on_card():
         rgru.gru_seq(layers[1]["wh"][:256, :768].contiguous(), torch.zeros(768, device=dev),
                      xproj, torch.ones(5, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="nres"):
-        refine.refine_coords(torch.zeros((4, 3), device=dev), 10, 5)
+        refine.refine_coords_batched(torch.zeros((1, 4, 3), device=dev), 10,
+                                     torch.tensor([5], device=dev))  # int64
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_rows,n_cols", [(256, 88), (1024, 352)])
@@ -414,10 +414,10 @@ def _chains_on_card(l, count, seed, packed=False):
 def test_refine_kernel_on_card(l, nres, packed):
     """The batched kernel at the fold's shape (a random walk and a packed
     trace), the largest bucket and a ragged batch: within 1e-4 of the plain
-    version, the same bits on a second launch, padding untouched; the
-    single-target wrapper is the same launch. 100 steps from a packed trace
-    part two fp32 versions by far more than 1e-4, so there each kernel step
-    is held against a plain step from the same state along the plain path."""
+    version, the same bits on a second launch, padding untouched. 100 steps
+    from a packed trace part two fp32 versions by far more than 1e-4, so
+    there each kernel step is held against a plain step from the same state
+    along the plain path."""
     _require_cuda()
     ca = _chains_on_card(l, len(nres), seed=l, packed=packed)
     nr = torch.tensor(nres, dtype=torch.int32, device=ca.device)
@@ -438,5 +438,3 @@ def test_refine_kernel_on_card(l, nres, packed):
     assert torch.equal(out, out2)
     for b, n in enumerate(nres):
         assert torch.equal(out[b, n:], ca[b, n:])
-    if len(nres) == 1:
-        assert torch.equal(refine.refine_coords(ca[0].contiguous(), 100, nres[0]), out[0])
