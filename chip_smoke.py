@@ -44,12 +44,28 @@ Phases, each printing one JSON line:
    alone, the device idle share of one 256 x 256 batch; four targets
    against their own single folds (fp32 at ``-n 1 -m 10``, bf16 at ``-n 0
    -m 0`` with phase cpu's bounds) and a partial batch against the full one.
+   Phases fold and batch print the model FLOP utilization (utils/flops.py)
+   with the peak it is read against.
+7b. strict -- the fidelity engine ``fp32_strict`` (LU DCA, raw eigenvector
+   signs): phase fold's checks and times in fp32_strict (launches equal to
+   the fp32 fold's); LU features card vs CPU within 1e-4 and LU vs Cholesky
+   within 1e-5 of max |ref|; confidences at ``-n 0 -m 0`` card vs CPU within
+   5e-4; the MDS output the same bits as eigh's own top-8 columns, and the
+   columns whose raw sign differs between card and CPU recorded; the batch
+   engine at B 8 in fp32_strict with each target's raw MDS output the same
+   bits as its map alone and its confidences within 5e-4 of its single
+   fold; PF10963 at its exact shape (252 x 82) against its bucket in fp32
+   and bf16.
 8. serve   -- a bf16 ``FoldService`` over HTTP (max batch 8, warmed at 256 x
    88): 16 concurrent clients post PF10963 at the defaults (half as text,
    half as JSON), then 16 post phase batch's targets; every response a
    whole PDB, requests coalesced, every inference kernel launched, req/s
    and latency percentiles; then each inference kernel's device time and
    bound at the batch shapes (B 8, L 256; refine also at B 16).
+8b. evaluate -- ``train/evaluate.py`` on eight seeded validation targets in
+   two buckets, batch 8, ``-n 10 -m 100``, in bf16 and fp32_strict: every
+   target scored, each record equal to ``score.tm_score`` of its fold;
+   targets/s (random weights: TM itself means nothing).
 9. train   -- bf16 training at full width through ``DMPDataset``,
    ``pad_to_bucket``, ``make_optimizer`` and ``train_step``, on two samples
    written to a temp dir: four micro-steps (nloops 0-3, accumulation over 2)
@@ -86,14 +102,20 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-EXAMPLE_ALN = os.path.join(REPO, "dmpfold2_tpu", "example", "PF10963.aln")
-
+sys.path.insert(0, REPO)
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 outside the tensor
 # cores, bf16 on the tensor cores and HBM3 bandwidth; bound_ms is the larger
-# of the operations time and the bytes time
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_TENSOR = 989e12
-PEAK_HBM_BYTES = 3.35e12
+# of the operations time and the bytes time. Alone, without the package, the
+# script stops here.
+from dmpfold2_tpu_torch.utils.assets import example_aln_path  # noqa: E402
+from dmpfold2_tpu_torch.utils.flops import (PEAK_BF16_TENSOR, PEAK_FP32_FLOPS,  # noqa: E402
+                                            PEAK_HBM_BYTES, fold_flops, mfu)
+
+EXAMPLE_ALN = example_aln_path()
+# the peak each engine's model FLOP utilization is read against, named beside it
+MFU_PEAK = {"fp32": (PEAK_FP32_FLOPS, "fp32 67 TFLOP/s (H100 SXM, TF32 off)"),
+            "fp32_strict": (PEAK_FP32_FLOPS, "fp32 67 TFLOP/s (H100 SXM, TF32 off)"),
+            "bf16": (PEAK_BF16_TENSOR, "bf16 tensor 989 TFLOP/s (H100 SXM)")}
 REFINE_FLOP_PER_PAIR = 24  # sub 3, square-sum 5, max, sqrt, clip 2, cmp, sub, mul, div 3, mul 3, add 3
 
 # the default fold of PF10963: 252 sequences x 82 residues, bucket (256, 88)
@@ -110,6 +132,8 @@ EXPECTED_LAUNCHES = {
     "bf16": {"vgru": 1, "rgru": 35, "refine": 2, "conv5x5_maxout": 176, "gemm_maxout": 11,
              "conv5x5_maxout_diff": 0},
 }
+# fp32_strict is the fp32 engine with the LU DCA and raw signs: the same kernels
+EXPECTED_LAUNCHES["fp32_strict"] = EXPECTED_LAUNCHES["fp32"]
 GRU_TOL = 1e-4     # fp32, sums in another order than cuBLAS over 512/256 terms
 REFINE_TOL = 1e-4  # the JAX package's own kernel-vs-XLA bound (tests/test_pallas_refine.py)
 # the bf16 trunk kernels against their plain versions: both round the same
@@ -790,10 +814,15 @@ def phase_fold(params, precision: str) -> tuple[dict, tuple]:
         "conf_in_0_1": bool(((confs >= 0) & (confs <= 1)).all()),
         "launches": launches == expected,
     }
+    flops = fold_flops(N_PAD, L_PAD, ITERATIONS, MINSTEPS)
+    peak, peak_name = MFU_PEAK[precision]
     emit({"phase": "fold", "precision": precision, "target": "PF10963",
           "shape": list(alnmat.shape), "iterations": ITERATIONS, "minsteps": MINSTEPS,
           "wall_s": wall, "wall_s_median": float(np.median(walls)), "wall_s_all": walls,
           "held_folder_wall_s_median": float(np.median(held)), "held_folder_wall_s_all": held,
+          "fold_flops": flops, "mfu_peak": peak_name,
+          "mfu": mfu(flops, float(np.median(walls)), peak),
+          "mfu_held_folder": mfu(flops, float(np.median(held)), peak),
           "launches": launches, "expected_launches": expected,
           "mean_conf": float(confs.mean()), "checks": checks})
     failed = [k for k, ok in checks.items() if not ok]
@@ -1348,10 +1377,14 @@ def phase_batch(params, precision: str) -> dict:
     bf.close()
     log.close()
     checks["no_batch_error"] = not any(e in ("batch_error", "target_error") for e in events)
+    # model FLOPs of the run: each target at its bucket's shape
+    flops = sum(fold_flops(*bucket_shape(*a.shape), ITERATIONS, MINSTEPS) for _, a in targets)
+    peak, peak_name = MFU_PEAK[precision]
     emit({"phase": "batch", "precision": precision, "targets": len(targets),
           "batch_size": BATCH_SIZE, "buckets": [list(b) for b in BATCH_BUCKETS],
           "shapes": [list(a.shape) for _, a in targets], "iterations": ITERATIONS,
           "minsteps": MINSTEPS, "wall_s": walls[0], "wall_s_all": walls,
+          "fold_flops": flops, "mfu_peak": peak_name, "mfu": mfu(flops, walls[0], peak),
           "targets_per_s": len(targets) / walls[0],
           "targets_per_s_all": [len(targets) / w for w in walls],
           "fold_many_async_return_s": dispatch_return_s,
@@ -1369,6 +1402,297 @@ def phase_batch(params, precision: str) -> dict:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{precision} batch checks failed: {failed}; {check['failed']}")
+    return launches
+
+
+# ---------------------------------------------------------------- strict and evaluate
+#
+# Phase strict: the fidelity engine fp32_strict (the fp32 engine with the LU
+# DCA inverse and the raw eigenvector signs of eigh) at full width: the main
+# path's fold through phase_fold, the LU DCA and the raw signs held on the
+# card, the batch engine at B 8 in fp32_strict, and exact shapes
+# (use_buckets=False) in fp32 and bf16. Phase evaluate: train/evaluate.py on
+# eight seeded validation targets in bf16 and in fp32_strict.
+
+DCA_CARD_VS_CPU = 1e-4   # LU features, card vs CPU, of max |ref|
+DCA_LU_VS_CHOL = 1e-5    # LU vs Cholesky features on the card, of max |ref|
+STRICT_CONF_TOL = FP32_FOLD_TOLS["max_abs_conf"]
+STRICT_CA_TOL = FP32_FOLD_TOLS["max_abs_ca"]
+
+
+@contextlib.contextmanager
+def _mds_calls(store: list):
+    """Record (dm, nres, canonical_signs, output) of every MDS call the
+    inference forward makes."""
+    from dmpfold2_tpu_torch.models import gruresnet
+
+    orig = gruresnet.mds_coords
+
+    def recording(dm, nres, n_dims=8, canonical_signs=True):
+        out = orig(dm, nres, n_dims, canonical_signs=canonical_signs)
+        store.append((dm.clone(), nres.clone(), canonical_signs, out.clone()))
+        return out
+
+    gruresnet.mds_coords = recording
+    try:
+        yield
+    finally:
+        gruresnet.mds_coords = orig
+
+
+def _strict_dca() -> dict:
+    """PF10963's DCA features at its bucket (256 x 88): LU on the card against
+    LU on the CPU, and against Cholesky on the card, with the times of both
+    inverses on the card (CUDA events)."""
+    from dmpfold2_tpu_torch.engine.fold import pad_target
+    from dmpfold2_tpu_torch.features import dca, msa
+    from dmpfold2_tpu_torch.utils.aln import parse_aln
+
+    aln_p, _ = pad_target(parse_aln(EXAMPLE_ALN), None, N_PAD, L_PAD)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        oh = msa.msa_one_hot(torch.from_numpy(aln_p).to(dev), NSEQS, NRES)
+        w = msa.reweight(oh, NRES)
+        out[dev] = {m: dca.fast_dca(oh, w, NSEQS, NRES, method=m) for m in ("lu", "cholesky")}
+        if dev == "cuda":
+            ms = {m: time_ms(lambda m=m: dca.fast_dca(oh, w, NSEQS, NRES, method=m), reps=10)
+                  for m in ("lu", "cholesky")}
+    ref = out["cpu"]["lu"]
+    scale = ref.abs().max().item()
+    lu_gpu = out["cuda"]["lu"].cpu()
+    row = {"shape": [N_PAD, L_PAD], "n": 21 * L_PAD, "scale": scale,
+           "lu_card_vs_cpu": (lu_gpu - ref).abs().max().item() / scale,
+           "lu_vs_cholesky_card": (lu_gpu - out["cuda"]["cholesky"].cpu()).abs().max().item()
+           / scale,
+           "lu_cholesky_cpu": (ref - out["cpu"]["cholesky"]).abs().max().item() / scale,
+           "tols": {"lu_card_vs_cpu": DCA_CARD_VS_CPU, "lu_vs_cholesky_card": DCA_LU_VS_CHOL},
+           "fast_dca_ms": ms}
+    row["failed"] = [k for k, tol in row["tols"].items() if not row[k] <= tol]
+    return row
+
+
+def _raw_sign_checks(params) -> dict:
+    """A strict fold at -n 0 -m 0 on the card and on the CPU: confidences
+    within STRICT_CONF_TOL (read before MDS, so the signs do not enter); the
+    card's MDS output the same bits as eigh's own top-8 columns of the same
+    Gram matrix (the raw-sign wiring); the columns whose raw sign differs
+    between the card and the CPU on the card's distance map, recorded (cuSOLVER
+    and LAPACK may choose either sign)."""
+    from dmpfold2_tpu_torch import aln_to_coords
+    from dmpfold2_tpu_torch.config import FoldConfig
+    from dmpfold2_tpu_torch.models.geometry import mds_coords, mds_gram
+
+    kw = dict(params=params, iterations=0, minsteps=0, config=FoldConfig(precision="fp32_strict"))
+    calls: list = []
+    with _mds_calls(calls):
+        c_gpu, f_gpu = aln_to_coords(EXAMPLE_ALN, device="cuda", **kw)
+    _, f_cpu = aln_to_coords(EXAMPLE_ALN, device="cpu", **kw)
+    dm, nres, canonical, out = calls[0]
+    w, v = torch.linalg.eigh(mds_gram(dm, nres))  # the same Gram matrix, eigh alone
+    eigh_cols = v[..., -8:] * torch.sqrt(w[..., -8:].clamp(min=1e-8))[..., None, :]
+    cpu_out = mds_coords(dm.cpu(), nres.cpu(), canonical_signs=False)
+    dots = (out.cpu() * cpu_out).sum(dim=-2)[0]
+    row = {"mds_calls": len(calls), "canonical_signs": [c for _, _, c, _ in calls],
+           "max_abs_conf": float(np.abs(f_gpu - f_cpu).max()), "conf_tol": STRICT_CONF_TOL,
+           "v8_equals_eigh_columns": bool(torch.equal(out, eigh_cols)),
+           "card_vs_cpu_flipped_columns": int((dots < 0).sum()),
+           "card_vs_cpu_abs_max": (out.cpu().abs() - cpu_out.abs()).abs().max().item(),
+           "finite": bool(np.isfinite(c_gpu).all())}
+    row["failed"] = [k for k, ok in (("calls", row["canonical_signs"] == [False]),
+                                     ("conf", row["max_abs_conf"] <= STRICT_CONF_TOL),
+                                     ("v8", row["v8_equals_eigh_columns"]),
+                                     ("finite", row["finite"])) if not ok]
+    return row
+
+
+def _strict_batch(params) -> dict:
+    """BatchFolder at B 8 in fp32_strict on phase batch's eight 256 x 88
+    targets: at -n 10 -m 100, every MDS call's raw output for each target the
+    same bits as the same map alone (eigh at B 1), so a target's signs do not
+    depend on its batchmates; launches per batch the fp32 fold's; at -n 0 -m
+    0 each target's confidences within STRICT_CONF_TOL of its single fold."""
+    from dmpfold2_tpu_torch.engine.buckets import bucket_shape
+    from dmpfold2_tpu_torch.models.geometry import mds_coords
+    from dmpfold2_tpu_torch.parallel.stream import BatchFolder, Target
+
+    targets = [(n, a) for n, a in _batch_targets() if bucket_shape(*a.shape) == BATCH_BUCKETS[0]]
+    tgts = [Target(a) for _, a in targets]
+    bf = BatchFolder(params, device="cuda", batch_size=BATCH_SIZE, precision="fp32_strict")
+    events: list = []
+    with _logged_events(events):
+        bf.fold_many(tgts, ITERATIONS, MINSTEPS)  # warm-up
+        calls: list = []
+        _reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _mds_calls(calls):
+            results = bf.fold_many(tgts, ITERATIONS, MINSTEPS)
+        wall = time.perf_counter() - t0
+        launches = _read_counters()
+        same, checked = True, 0
+        for dm, nres, canonical, out in calls:
+            for b in range(dm.shape[0]):
+                alone = mds_coords(dm[b:b + 1], nres[b:b + 1], canonical_signs=False)[0]
+                same &= bool(torch.equal(out[b], alone)) and not canonical
+                checked += 1
+        quick = bf.fold_many(tgts, 0, 0)
+        conf = [float(np.abs(fb - bf.folder.fold(a, iterations=0, minsteps=0)[1]).max())
+                for (_, a), (_, fb) in zip(targets, quick)]
+    bf.close()
+    flops = sum(fold_flops(*BATCH_BUCKETS[0], ITERATIONS, MINSTEPS) for _ in targets)
+    row = {"targets": [n for n, _ in targets], "batch_size": BATCH_SIZE,
+           "bucket": list(BATCH_BUCKETS[0]), "wall_s": wall, "targets_per_s": len(tgts) / wall,
+           "fold_flops": flops, "mfu_peak": MFU_PEAK["fp32_strict"][1],
+           "mfu": mfu(flops, wall, PEAK_FP32_FLOPS),
+           "launches": launches, "mds_calls": len(calls), "maps_checked": checked,
+           "raw_v8_batch_equals_b1": same, "max_abs_conf_vs_single": max(conf),
+           "conf_tol": STRICT_CONF_TOL, "log_events": events}
+    row["failed"] = [k for k, ok in (
+        ("raw v8 B 8 vs B 1", same and checked == len(targets) * (ITERATIONS + 1)),
+        ("launches", launches == EXPECTED_LAUNCHES["fp32_strict"]),
+        ("all folded", all(r is not None for r in results)),
+        ("no batch error", not any(e in ("batch_error", "target_error") for e in events)),
+        ("conf vs single", max(conf) <= STRICT_CONF_TOL)) if not ok]
+    return row
+
+
+def _exact_shapes(params) -> list:
+    """PF10963 folded at its exact shape (252 x 82, use_buckets=False) and at
+    its bucket (256 x 88), -n 0 -m 0, on the card: fp32 confidences within
+    5e-4 and the CA trace within 1e-2 A on the valid region; bf16 within
+    phase cpu_bf16's bounds (confidences 0.025, the trunk's distance-map
+    and confidence channels 17 x 2^-8 of their scale). The kernels run at
+    L 82, which is no bucket width; one that could not would raise up front."""
+    from dmpfold2_tpu_torch.engine.fold import Folder
+    from dmpfold2_tpu_torch.utils.aln import parse_aln
+
+    alnmat = parse_aln(EXAMPLE_ALN)
+    rows = []
+    for precision in ("fp32", "bf16"):
+        out, store = {}, []
+        for exact in (True, False):
+            folder = Folder(params, device="cuda", precision=precision, use_buckets=not exact)
+            _reset_counters()
+            with _trunk_outputs(store) if precision == "bf16" else contextlib.nullcontext():
+                out[exact] = folder.fold(alnmat, iterations=0, minsteps=0)
+            if exact:
+                launches = _read_counters()
+            del folder
+        (ce, fe), (cb, fb) = out[True], out[False]
+        row = {"precision": precision, "exact_shape": [NSEQS, NRES], "bucket": [N_PAD, L_PAD],
+               "launches_exact": launches,
+               "max_abs_conf": float(np.abs(fe - fb).max()),
+               "max_abs_ca": float(np.abs(ce[:, 1] - cb[:, 1]).max())}
+        if precision == "fp32":
+            tols = {"max_abs_conf": STRICT_CONF_TOL, "max_abs_ca": STRICT_CA_TOL}
+        else:
+            tols = {"max_abs_conf": CONF_BF16_TOL}
+            (_, o_exact, _), (_, o_bucket, _) = store
+            for ch, label in ((0, "dmap"), (1, "conf")):
+                ref = o_bucket[0, :NRES, :NRES, ch]
+                scale = ref.abs().max().item()
+                row[f"max_abs_{label}_channel"] = (o_exact[0, ..., ch] - ref).abs().max().item()
+                row[f"{label}_channel_scale"] = scale
+                tols[f"max_abs_{label}_channel"] = TRUNK_BF16_REL * scale
+        row["tols"] = tols
+        row["failed"] = [k for k, tol in tols.items() if not row[k] <= tol]
+        rows.append(row)
+    return rows
+
+
+def phase_strict(params) -> dict:
+    """The fidelity engine on the card. Returns the strict fold's launches."""
+    launches, _ = phase_fold(params, "fp32_strict")
+    dca_row = _strict_dca()
+    signs = _raw_sign_checks(params)
+    batch = _strict_batch(params)
+    exact = _exact_shapes(params)
+    failed = ([f"dca {k}" for k in dca_row["failed"]] + [f"signs {k}" for k in signs["failed"]]
+              + [f"batch {k}" for k in batch["failed"]]
+              + [f"exact {r['precision']} {k}" for r in exact for k in r["failed"]])
+    emit({"phase": "strict", "dca": dca_row, "raw_signs": signs, "batch": batch,
+          "exact_shapes": exact, "failed": failed})
+    if failed:
+        raise AssertionError(f"strict checks failed: {failed}")
+    return {"fold": launches, "batch": batch["launches"]}
+
+
+# phase evaluate: eight seeded validation targets in two buckets, (nseqs, nres)
+EVAL_SHAPES = ((200, 82), (150, 85), (120, 88), (252, 84),
+               (180, 245), (140, 250), (256, 241), (160, 256))
+
+
+def _write_eval_data(root: str, rng) -> None:
+    """tdb/ and aln/ files of EVAL_SHAPES (a random-walk target and a seeded
+    alignment each) and ``clusters.lst``, one cluster per target, so all are
+    validation clusters."""
+    os.makedirs(os.path.join(root, "tdb"))
+    os.makedirs(os.path.join(root, "aln"))
+    letters = np.array(list("ARNDCQEGHILKMFPSTWYV-"))
+    for i, (nseqs, nres) in enumerate(EVAL_SHAPES):
+        _write_tdb(os.path.join(root, "tdb", f"val{i}.tdb"), _chain(nres, rng))
+        rows = ["".join(r) for r in letters[rng.integers(0, 21, (nseqs, nres))]]
+        with open(os.path.join(root, "aln", f"val{i}.aln"), "w") as fh:
+            fh.write("\n".join(rows) + "\n")
+    with open(os.path.join(root, "clusters.lst"), "w") as fh:
+        fh.write("".join(f"val{i}\n" for i in range(len(EVAL_SHAPES))))
+
+
+def phase_evaluate(params, data_dir: str) -> dict:
+    """train/evaluate.py on the card, batch 8, -n 10 -m 100, in bf16 and in
+    fp32_strict: every target folded and scored, and every record's tm and
+    rmsd equal to score.tm_score recomputed on the CA trace the batch engine
+    returned (the same numpy code: exact). With random weights TM itself
+    means nothing; targets/s is recorded. Returns each engine's launches."""
+    from dmpfold2_tpu_torch.parallel import stream
+    from dmpfold2_tpu_torch.score import tm_score
+    from dmpfold2_tpu_torch.train.dataset import DMPDataset, load_cluster_list
+    from dmpfold2_tpu_torch.train.evaluate import evaluate
+
+    _, val_list = load_cluster_list(os.path.join(data_dir, "clusters.lst"))
+    natives = DMPDataset(val_list, data_dir, augment=False)
+    real = stream.BatchFolder.fold_many
+    launches, rows, failed = {}, [], []
+    for precision in ("bf16", "fp32_strict"):
+        folds: list = []
+
+        def recording(self, targets, *a, **kw):
+            results = real(self, targets, *a, **kw)
+            folds.extend(results)
+            return results
+
+        stream.BatchFolder.fold_many = recording
+        try:
+            # no warm-up run: phase batch ran these buckets at this batch size
+            # in fp32 and bf16 (fp32_strict runs the fp32 engine's kernels)
+            _reset_counters()
+            summary, records = evaluate(params, val_list, data_dir=data_dir,
+                                        iterations=ITERATIONS, minsteps=MINSTEPS,
+                                        precision=precision, batch_size=BATCH_SIZE,
+                                        verbose=False, device="cuda")
+            launches[precision] = _read_counters()
+        finally:
+            stream.BatchFolder.fold_many = real
+        exact = 0
+        for rec in records:
+            coords = folds[rec["index"]][0]
+            sc = tm_score(np.asarray(coords[:, 1], np.float64),
+                          np.asarray(natives[rec["index"]].targets[:, 1], np.float64))
+            exact += (rec["tm"], rec["rmsd"]) == (sc["tm"], sc["rmsd"])
+        row = {"precision": precision, "summary": summary, "records": records,
+               "records_equal_tm_score": exact}
+        rows.append(row)
+        print(json.dumps(summary), flush=True)
+        if not (summary["targets"] == len(EVAL_SHAPES) and summary["skipped"] == 0
+                and exact == len(EVAL_SHAPES)):
+            failed.append(precision)
+    emit({"phase": "evaluate", "shapes": [list(s) for s in EVAL_SHAPES],
+          "batch_size": BATCH_SIZE, "iterations": ITERATIONS, "minsteps": MINSTEPS,
+          "note": "random weights: TM and RMSD are meaningless; held: every target scored, "
+                  "every record equal to score.tm_score of its fold",
+          "rows": rows, "launches": launches, "failed": failed})
+    if failed:
+        raise AssertionError(f"evaluate checks failed: {failed}")
     return launches
 
 
@@ -2111,7 +2435,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
         sys.exit(2)
-    sys.path.insert(0, REPO)
     from dmpfold2_tpu_torch.models.gruresnet import init_params
 
     info = phase_device()
@@ -2128,7 +2451,13 @@ def main() -> None:
     paths = {f"fold {p}": launches[p] for p in ("fp32", "bf16")}
     for precision in ("fp32", "bf16"):
         paths[f"batch {precision}"] = phase_batch(params, precision)
+    strict = phase_strict(params)
+    paths["fold fp32_strict"], paths["batch fp32_strict"] = strict["fold"], strict["batch"]
     paths["serve bf16"] = phase_serve(params)
+    with tempfile.TemporaryDirectory() as eval_dir:
+        _write_eval_data(eval_dir, np.random.default_rng(3))
+        for precision, counts in phase_evaluate(params, eval_dir).items():
+            paths[f"evaluate {precision}"] = counts
     batch_shapes = _batch_kernel_shapes(params, np.random.default_rng(11))
     with tempfile.TemporaryDirectory() as data_dir:
         _write_train_data(data_dir, np.random.default_rng(1))

@@ -52,9 +52,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="model weights (.pt state dict or .npz)")
     parser.add_argument("--precision", type=str, default=None,
                         choices=["fp32", "bf16", "fp32_strict"],
-                        help="compute policy: fp32 (default), or bf16 (the trunk in "
-                             "bf16 with fp32 accumulation); fp32_strict is not yet "
-                             "ported")
+                        help="compute policy: fp32 (default); bf16 (the trunk in bf16 "
+                             "with fp32 accumulation); fp32_strict (fp32 as the reference "
+                             "computes it, for comparing with a reference run: LU DCA "
+                             "inverse, raw eigenvector signs)")
+    parser.add_argument("--dca-method", dest="dca_method", type=str, default=None,
+                        choices=["auto", "cholesky", "lu"],
+                        help="DCA covariance inverse: auto (default: lu for fp32_strict, "
+                             "cholesky otherwise), cholesky or lu")
     parser.add_argument("-o", "--out-dir", dest="out_dir", type=str, default=None,
                         help="write <stem>.pdb per input here instead of stdout, through "
                              "the batch engine")
@@ -97,7 +102,8 @@ def _run_batch(args, parser) -> None:
                          f"{path} has {alnmat.shape[1]} residues — lengths must match")
         targets.append(Target(alnmat=alnmat, template_ca=template_ca))
     folder = BatchFolder(load_weights(config.weights_file), device=config.device,
-                         batch_size=args.batch_size, precision=config.precision)
+                         batch_size=args.batch_size, precision=config.precision,
+                         dca_method=config.dca_method)
     os.makedirs(args.out_dir, exist_ok=True)
     t0 = time.perf_counter()
     results = folder.fold_many(targets, iterations=config.iterations,

@@ -2,26 +2,23 @@
 training constants.
 
 Counterpart of ``dmpfold2_tpu/config.py:FoldConfig`` and ``TrainConfig``.
-The port runs two precisions, ``fp32`` and ``bf16``; ``fp32_strict`` is not
-ported yet (ROADMAP.md, queue 1).
+Three precisions: ``fp32``, ``bf16`` (the trunk in bf16 with fp32
+accumulation) and ``fp32_strict``, the fidelity mode for comparing against a
+reference run: the fp32 engine with the LU DCA inverse (the reference's
+``torch.inverse``) and the raw eigenvector signs of ``eigh``. There is no
+``vgru_impl``: the tensor's device chooses each kernel's implementation.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-PRECISIONS = ("fp32", "bf16")
-NOT_PORTED_PRECISIONS = ("fp32_strict",)
+PRECISIONS = ("fp32", "bf16", "fp32_strict")
 
 
 def check_precision(precision: str) -> None:
-    if precision in NOT_PORTED_PRECISIONS:
-        raise NotImplementedError(
-            f"precision {precision!r} is not yet ported to the PyTorch "
-            "package (ROADMAP.md, queue 1); use precision='fp32' or 'bf16'")
     if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}; expected one of "
-                         f"{PRECISIONS + NOT_PORTED_PRECISIONS}")
+        raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
 
 
 @dataclass
@@ -34,6 +31,9 @@ class FoldConfig:
     weights_file: str | None = None
 
     precision: str = "fp32"
+    dca_method: str = "auto"         # "cholesky" | "lu"; auto: engine.fold.resolve_dca_method
+    use_buckets: bool = True         # single-target engine only; the batch
+                                     # engine always buckets (its batches are buckets)
 
     @classmethod
     def from_cli_args(cls, args) -> "FoldConfig":
@@ -49,8 +49,9 @@ class FoldConfig:
             template=template,
             weights_file=args.model_weights,
         )
-        if getattr(args, "precision", None) is not None:
-            cfg.precision = args.precision
+        for name in ("precision", "dca_method"):
+            if getattr(args, name, None) is not None:
+                setattr(cfg, name, getattr(args, name))
         return cfg
 
 

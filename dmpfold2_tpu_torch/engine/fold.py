@@ -2,8 +2,11 @@
 
 Counterpart of ``dmpfold2_tpu/engine/fold.py`` for the single-target fold
 (and, in :func:`fold_padded_batch`, the batch engine's device body) in
-two engines: ``fp32`` and ``bf16`` (the trunk in bf16 with fp32
-accumulation; everything else as in fp32). Host code parses and pads;
+three engines: ``fp32``; ``bf16`` (the trunk in bf16 with fp32
+accumulation; everything else as in fp32); and ``fp32_strict``, the fp32
+engine as the reference computes it, for comparing with a reference run: the
+LU DCA inverse (the reference's ``torch.inverse``) and the raw eigenvector
+signs of ``eigh``, with TF32 off as in every engine. Host code parses and pads;
 everything after runs on the chosen device: one-hot, reweighting, DCA, the
 network with recycling, refinement and backbone completion. On a CUDA device
 the vertical GRU, the residue GRUs, the refinement loop and, in bf16, the
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from ..config import FoldConfig, check_precision
-from ..features.dca import NUM_DCA_CHANNELS, dca_or_zero
+from ..features.dca import NUM_DCA_CHANNELS, check_method, dca_or_zero
 from ..features.msa import msa_one_hot, reweight
 from ..kernels import _build
 from ..models import gruresnet
@@ -51,6 +54,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def resolve_dca_method(setting: str, precision: str) -> str:
+    """The DCA inverse a fold runs: an explicit setting wins; ``"auto"`` is
+    ``"lu"`` for ``fp32_strict`` (the reference's ``torch.inverse`` is an LU
+    inverse, and the Cholesky inverse differs from it at about 1e-6, which
+    recycling can amplify) and ``"cholesky"`` otherwise (half the operations
+    of LU on a positive definite matrix)."""
+    if setting != "auto":
+        check_method(setting)
+        return setting
+    return "lu" if precision == "fp32_strict" else "cholesky"
+
+
 def use_full_fp32() -> None:
     """fp32 means fp32: turn TF32 off for matmuls and cuDNN convolutions.
 
@@ -65,18 +80,21 @@ def use_full_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def pair_features(alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor) -> torch.Tensor:
+def pair_features(alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor,
+                  dca_method: str = "cholesky") -> torch.Tensor:
     """(B, n_pad, l_pad) int32 alignments, per-target sizes (sequences of
     ints), (B, l_pad, l_pad) dmap channels -> (B, l_pad, l_pad, 443) pair
     features [DCA 442 | dmap 1], one target at a time (the (21L)^2 DCA
     inverse of a whole batch at once would need B times the memory; a single
-    sequence gives zero DCA)."""
+    sequence gives zero DCA). ``dca_method``: the inverse, ``"cholesky"`` or
+    ``"lu"``."""
     batch, _, l_pad = alnmat.shape
     x2 = torch.empty((batch, l_pad, l_pad, NUM_DCA_CHANNELS + 1), device=alnmat.device)
     for b in range(batch):
         oh = msa_one_hot(alnmat[b], nseqs[b], nres[b])
         w = reweight(oh, nres[b])
-        x2[b, :, :, :NUM_DCA_CHANNELS] = dca_or_zero(oh, w, nseqs[b], nres[b])
+        x2[b, :, :, :NUM_DCA_CHANNELS] = dca_or_zero(oh, w, nseqs[b], nres[b],
+                                                     method=dca_method)
         del oh
     x2[..., NUM_DCA_CHANNELS] = dmap_channel
     return x2
@@ -84,25 +102,29 @@ def pair_features(alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor)
 
 def fold_padded_batch(params, alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor,
                       nloops: int, refine_steps: int, adaptive: bool = False,
-                      precision: str = "fp32"):
+                      precision: str = "fp32", dca_method: str = "cholesky"):
     """(B, n_pad, l_pad) int32 alignments of one bucket on the device,
     per-target sizes (sequences of ints), (B, l_pad, l_pad) dmap channels ->
     (coords (B, l_pad, 5, 3), confidences (B, l_pad), recycles run).
-    ``params`` as ``gruresnet.pack_params`` gives them for ``precision``."""
-    x2 = pair_features(alnmat, nseqs, nres, dmap_channel)
+    ``params`` as ``gruresnet.pack_params`` gives them for ``precision``;
+    ``dca_method`` as :func:`resolve_dca_method` gives it. ``fp32_strict``
+    keeps the raw eigenvector signs."""
+    x2 = pair_features(alnmat, nseqs, nres, dmap_channel, dca_method)
     return gruresnet.forward_inference(params, alnmat, x2, nseqs, nres, nloops, refine_steps,
                                        adaptive_recycle=adaptive,
-                                       adaptive_patience=AUTO_PATIENCE, precision=precision)
+                                       adaptive_patience=AUTO_PATIENCE, precision=precision,
+                                       canonical_signs=precision != "fp32_strict")
 
 
 def fold_padded(params, alnmat: torch.Tensor, nseqs: int, nres: int,
                 dmap_channel: torch.Tensor, nloops: int, refine_steps: int,
-                adaptive: bool = False, precision: str = "fp32"):
+                adaptive: bool = False, precision: str = "fp32", dca_method: str = "cholesky"):
     """(n_pad, l_pad) int32 alignment on the device -> (coords (l_pad, 5, 3),
     confidences (l_pad,), recycles run): :func:`fold_padded_batch` at B 1."""
     coords, confs, used = fold_padded_batch(params, alnmat[None], [nseqs], [nres],
                                             dmap_channel[None], nloops, refine_steps,
-                                            adaptive=adaptive, precision=precision)
+                                            adaptive=adaptive, precision=precision,
+                                            dca_method=dca_method)
     return coords[0], confs[0], used
 
 
@@ -138,16 +160,21 @@ class Folder:
 
     With ``precision="bf16"`` the trunk weights are packed for the bf16
     kernels here, once, not per fold. On a CUDA device, widths the kernels
-    cannot run raise ``ValueError`` before any upload.
+    cannot run raise ``ValueError`` before any upload. ``dca_method`` is
+    resolved once (:func:`resolve_dca_method`). ``use_buckets=False`` folds
+    at the target's exact (nseqs, nres) instead of its bucket's shape.
     """
 
-    def __init__(self, params, device=None, precision: str = "fp32"):
+    def __init__(self, params, device=None, precision: str = "fp32",
+                 dca_method: str = "auto", use_buckets: bool = True):
         check_precision(precision)
+        self.dca_method = resolve_dca_method(dca_method, precision)
         self.device = resolve_device(device)
         gruresnet.check_card_widths(params, precision, self.device)
         use_full_fp32()
         self.params = gruresnet.pack_params(params_to(params, self.device), precision)
         self.precision = precision
+        self.use_buckets = use_buckets
 
     def fold(self, alnmat: np.ndarray, template_ca: np.ndarray | None = None,
              iterations=DEFAULT_ITERATIONS, minsteps: int = DEFAULT_MINSTEPS):
@@ -174,12 +201,13 @@ class Folder:
         adaptive = iterations == "auto"
         nloops = AUTO_ITERATIONS_CAP if adaptive else max(int(iterations), 0)
         nseqs, nres = alnmat.shape
-        aln_p, dmap = pad_target(alnmat, template_ca, *bucket_shape(nseqs, nres))
+        aln_p, dmap = pad_target(alnmat, template_ca,
+                                 *bucket_shape(nseqs, nres, self.use_buckets))
         with torch.inference_mode():
             coords, confs, used = fold_padded(
                 self.params, torch.from_numpy(aln_p).to(self.device), nseqs, nres,
                 torch.from_numpy(dmap).to(self.device), nloops, max(int(minsteps), 0),
-                adaptive=adaptive, precision=self.precision)
+                adaptive=adaptive, precision=self.precision, dca_method=self.dca_method)
 
         def fetch():
             return coords[:nres].cpu().numpy(), confs[:nres].cpu().numpy(), used
@@ -251,12 +279,14 @@ def aln_to_coords(input_file: str, device=None, template: str | None = None,
     if device is None:
         device = cfg.device
     check_precision(cfg.precision)  # fail before parsing or loading
+    resolve_dca_method(cfg.dca_method, cfg.precision)  # likewise
     folder_device = resolve_device(device)
     alnmat = aln_io.parse_aln(input_file)
     template_ca = pdb_io.parse_template_ca(template) if template is not None else None
     if params is None:
         params = load_weights(weights_file)
-    folder = Folder(params, device=folder_device, precision=cfg.precision)
+    folder = Folder(params, device=folder_device, precision=cfg.precision,
+                    dca_method=cfg.dca_method, use_buckets=cfg.use_buckets)
     coords, confs = folder.fold(alnmat, template_ca, iterations, minsteps)
     if return_alnmat:
         return coords, confs, alnmat

@@ -14,6 +14,15 @@ batch columns); a card that cannot hold one cluster makes the launch return
 an error, which the wrapper raises. On a CUDA tensor a wrapper launches the
 kernel or raises. On a CPU tensor it runs the plain version. One launch is
 one count.
+
+All three engines run this kernel, ``fp32_strict`` included. The kernel's
+arithmetic is fp32 throughout (fp32 FMAs for the recurrent product, fp32
+``expf``/``tanhf`` for the gates; the input projections are fp32
+``torch.matmul`` with TF32 off), so ``fp32_strict`` gets the same fp32 GRU as
+``fp32``. The JAX package keeps a plain scan under ``fp32_strict`` for
+"reference-matmul-order fidelity" on the TPU, but on the GPU the reference
+runs cuDNN's GRU, whose summation order neither a plain scan nor this kernel
+reproduces; no plain version runs on the card.
 """
 
 from __future__ import annotations

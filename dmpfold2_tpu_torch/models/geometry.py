@@ -24,17 +24,13 @@ def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / n
 
 
-def mds_coords(dm: torch.Tensor, nres, n_dims: int = 8) -> torch.Tensor:
-    """Distance-map channel (..., L, L) -> top-``n_dims`` MDS embedding (..., L, n_dims).
-
-    ``nres``: an int, or a tensor of the leading (batch) shape: each map's
-    true length. Symmetrize, abs, Gram matrix from the first row/column,
-    ``eigh`` (one call for the whole batch), the largest eigenpairs. Padded
-    rows/columns are zeroed and given distinct very negative diagonal
-    entries, so the valid block's spectrum is kept and the padding eigenpairs
-    sink below it. Eigenvector signs are made canonical (largest-|component|
-    positive), so LAPACK and cuSOLVER, and a batch and a single map, agree.
-    """
+def mds_gram(dm: torch.Tensor, nres) -> torch.Tensor:
+    """The Gram matrix MDS decomposes: distance-map channel (..., L, L) ->
+    (..., L, L). Symmetrize, abs, Gram matrix from the first row/column.
+    Padded rows/columns (at or past ``nres``, an int or a tensor of the
+    leading shape) are zeroed and given distinct very negative diagonal
+    entries, so the valid block's spectrum is kept and the padding
+    eigenpairs sink below it."""
     l_pad = dm.shape[-1]
     dm = (0.5 * (dm + dm.transpose(-1, -2))).abs()
     gram = 0.5 * (dm[..., 0:1, :].square() + dm[..., :, 0:1].square() - dm.square())
@@ -43,7 +39,23 @@ def mds_coords(dm: torch.Tensor, nres, n_dims: int = 8) -> torch.Tensor:
     gram = gram * (col[..., :, None] & col[..., None, :])
     pad_diag = torch.where(col, torch.zeros((), device=dm.device),
                            -(1e6 + idx.to(dm.dtype)))
-    gram = gram + torch.diag_embed(pad_diag)
+    return gram + torch.diag_embed(pad_diag)
+
+
+def mds_coords(dm: torch.Tensor, nres, n_dims: int = 8,
+               canonical_signs: bool = True) -> torch.Tensor:
+    """Distance-map channel (..., L, L) -> top-``n_dims`` MDS embedding (..., L, n_dims).
+
+    ``nres``: an int, or a tensor of the leading (batch) shape: each map's
+    true length. ``eigh`` of :func:`mds_gram` (one call for the whole
+    batch), the largest eigenpairs.
+
+    ``canonical_signs``: make the eigenvector signs canonical
+    (largest-|component| positive), so LAPACK and cuSOLVER, and a batch and a
+    single map, agree. ``False`` keeps the raw signs of ``eigh``, as the
+    reference does (network.py:247): the ``fp32_strict`` engine's choice.
+    """
+    gram = mds_gram(dm, nres)
     # a non-finite map (a training step on NaN inputs, which the step's guard
     # then skips) gives NaN coordinates for its target, as XLA's eigh does;
     # torch's eigh would raise on the CPU instead, so it is handed zeros
@@ -51,8 +63,9 @@ def mds_coords(dm: torch.Tensor, nres, n_dims: int = 8) -> torch.Tensor:
     w, v = torch.linalg.eigh(torch.where(finite, gram, 0.0))
     w8 = w[..., -n_dims:].clamp(min=1e-8)
     v8 = v[..., -n_dims:]
-    comp = v8.gather(-2, v8.abs().argmax(dim=-2, keepdim=True))                   # (..., 1, n)
-    v8 = v8 * torch.where(comp < 0, -1.0, 1.0)
+    if canonical_signs:
+        comp = v8.gather(-2, v8.abs().argmax(dim=-2, keepdim=True))               # (..., 1, n)
+        v8 = v8 * torch.where(comp < 0, -1.0, 1.0)
     return torch.where(finite, v8 * torch.sqrt(w8)[..., None, :], float("nan"))
 
 

@@ -105,7 +105,8 @@ def pack_params(params, precision: str):
 
 def forward(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs: int, nres: int,
             nloops: int, refine_steps: int, *, adaptive_recycle: bool = False,
-            adaptive_patience: int = 2, precision: str = "fp32"):
+            adaptive_patience: int = 2, precision: str = "fp32",
+            canonical_signs: bool = True):
     """Run the network on one target: :func:`forward_inference` at B 1.
 
     Args:
@@ -120,13 +121,14 @@ def forward(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs: int, nres: in
     coords, confs, iterations = forward_inference(
         params, alnmat[None], x2[None], [nseqs], [nres], nloops, refine_steps,
         adaptive_recycle=adaptive_recycle, adaptive_patience=adaptive_patience,
-        precision=precision)
+        precision=precision, canonical_signs=canonical_signs)
     return coords[0], confs[0], iterations
 
 
 def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
                       nloops: int, refine_steps: int, *, adaptive_recycle: bool = False,
-                      adaptive_patience: int = 2, precision: str = "fp32"):
+                      adaptive_patience: int = 2, precision: str = "fp32",
+                      canonical_signs: bool = True):
     """Run the network on a batch of targets of one bucket, for inference.
 
     The counterpart of the JAX ``forward_batched`` (:247-375) as the batch
@@ -145,8 +147,12 @@ def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nre
           once the best mean confidence has not improved for
           ``adaptive_patience`` recycles in a row (``-n auto``).
       refine_steps: refinement steps, before and after recycling.
-      precision: ``fp32``, or ``bf16``: the trunk in bf16 with fp32
-          accumulation (``trunk.trunk_apply_bf16``); everything else fp32.
+      precision: ``fp32`` (or ``fp32_strict``, the same network), or
+          ``bf16``: the trunk in bf16 with fp32 accumulation
+          (``trunk.trunk_apply_bf16``); everything else fp32.
+      canonical_signs: MDS eigenvector signs made canonical
+          (``geometry.mds_coords``); ``False`` keeps the raw signs of
+          ``eigh`` (``fp32_strict``).
 
     Returns:
       coords (B, l_pad, 5, 3), confidences (B, l_pad), and the recycles run.
@@ -187,7 +193,7 @@ def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nre
         out = trunk_pass(dmap_channel)
         dm = out[..., 0]
         conf = (out[..., 1] * row_mask[:, None, :]).sum(dim=2) / nres_f[:, None]
-        mds = mds_coords(dm, nres_t)                                                  # (B, L, 8)
+        mds = mds_coords(dm, nres_t, canonical_signs=canonical_signs)               # (B, L, 8)
         coordembed = torch.cat([mat1d, mds], dim=2).transpose(0, 1)                  # (L, B, 520)
         gru_out = rgru.bigru_stack(params["coord_gru"], coordembed, nres_t).transpose(0, 1)
         return gru_out @ params["coord_fc"], conf                             # (B, L, 3), (B, L)

@@ -89,7 +89,7 @@ def _fold_batch(folder: Folder, aln_b: np.ndarray, dmap_b: np.ndarray, nseqs, nr
         coords, confs, _ = fold_padded_batch(
             folder.params, torch.from_numpy(aln_b).to(dev), nseqs, nres,
             torch.from_numpy(dmap_b).to(dev), max(int(iterations), 0), max(int(minsteps), 0),
-            precision=folder.precision)
+            precision=folder.precision, dca_method=folder.dca_method)
         return coords.cpu().numpy(), confs.cpu().numpy()
 
 
@@ -97,15 +97,17 @@ class BatchFolder:
     """Groups targets by bucket and folds them in batches on one device.
 
     ``params`` are uploaded once (through a held :class:`Folder`, which also
-    folds requeued targets). ``device`` defaults to ``cuda`` and raises
-    without it. ``max_inflight`` batches run at once, each on its own worker
-    thread and, on a CUDA device, its own stream.
+    folds requeued targets with the same ``precision`` and ``dca_method``).
+    ``device`` defaults to ``cuda`` and raises without it. ``max_inflight``
+    batches run at once, each on its own worker thread and, on a CUDA device,
+    its own stream. Batches are buckets, so the batch engine always pads to
+    them.
     """
 
     def __init__(self, params, device=None, batch_size: int = 1, precision: str = "fp32",
                  verbose: bool = False, counters: Counters | None = None,
-                 max_inflight: int = 2):
-        self.folder = Folder(params, device=device, precision=precision)
+                 max_inflight: int = 2, dca_method: str = "auto"):
+        self.folder = Folder(params, device=device, precision=precision, dca_method=dca_method)
         self.device = self.folder.device
         self.precision = precision
         self.batch_size = batch_size

@@ -426,7 +426,7 @@ def main(argv=None):
     ap.add_argument("--weights", default=None, help="model weights (.npz or .pt state dict)")
     ap.add_argument("-d", "--device", default=None,
                     help="torch device to run on: cuda (default) or cpu")
-    ap.add_argument("--precision", default="bf16", choices=["fp32", "bf16"])
+    ap.add_argument("--precision", default="bf16", choices=["fp32", "bf16", "fp32_strict"])
     ap.add_argument("--batch-window-ms", type=float, default=50.0,
                     help="request-coalescing window for batched dispatch")
     ap.add_argument("--max-batch", type=int, default=8)

@@ -5,8 +5,8 @@ cluster list, 96-198 DMPDataset), kept as this package's own copy:
 
   * tdb files: one residue per non-comment line, residue letter at column 5,
     five atoms (N, CA, C, O, CB) of 9-char floats from column 39
-    (train.py:117-124). The pure-Python parser only; the native ``dmpio``
-    parser is not ported (ROADMAP.md, queue 1).
+    (train.py:117-124), through the native parser (``utils/native.py``)
+    where it built, else in pure Python, with the same arrays.
   * augmentation: random cluster member, terminal-gap crop from a random
     row, random crop to ``crop_len``, log-uniform row subsampling under the
     ``max_aln_size`` area budget (train.py:138-162), the same draws from the
@@ -59,6 +59,11 @@ def load_cluster_list(path: str, validation_clusters: int = VALIDATION_CLUSTERS)
 
 def parse_tdb(path: str):
     """tdb file -> (residue classes (L,) int32, coords (L, 5, 3) float32)."""
+    from ..utils import native
+
+    if native.available():
+        with open(path, "rb") as fh:
+            return native.parse_tdb_bytes(fh.read())
     classes, coords = [], []
     with open(path) as fh:
         for line in fh:

@@ -28,6 +28,7 @@ from ..config import TrainConfig
 from ..engine.fold import resolve_device
 from ..models import gruresnet
 from ..ops.dropout import fold_in
+from ..utils import assets
 from . import checkpoint as ckpt
 from .dataset import DMPDataset, load_cluster_list, pad_to_bucket
 from .step import TrainBatch, make_optimizer, train_step, trainable
@@ -105,7 +106,13 @@ def train(data_dir: str = ".", clusters: str = "train_clust.lst", workdir: str =
     restart = cfg.restart if restart is None else restart
     refine_steps = cfg.refine_steps if refine_steps is None else refine_steps
     dev = resolve_device(device)
-    train_list, validation_list = load_cluster_list(os.path.join(data_dir, clusters))
+    clusters_path = os.path.join(data_dir, clusters)
+    if not os.path.isfile(clusters_path):
+        # the repository's own list (the reference's train_clust.lst), as the
+        # JAX loop falls back to it
+        print(f"{clusters_path} not found; using {assets.cluster_list_path()}")
+        clusters_path = assets.cluster_list_path()
+    train_list, validation_list = load_cluster_list(clusters_path)
     print(f"{len(train_list)} training / {len(validation_list)} validation clusters")
 
     params = gruresnet.init_params(seed, **(model_kwargs or {}))

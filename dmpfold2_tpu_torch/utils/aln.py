@@ -1,7 +1,6 @@
 """Alignment (.aln / .a3m) parsing and residue encoding.
 
-Counterpart of ``dmpfold2_tpu/utils/aln.py`` (its pure-Python path). The
-reference encoding: lines starting with '>' are skipped, the others are
+Counterpart of ``dmpfold2_tpu/utils/aln.py``. The reference encoding: lines starting with '>' are skipped, the others are
 alignment rows; residues map through the 28-character table
 'ARNDCQEGHILKMFPSTWYVBJOUXZ-.' -> 'ABCDEFGHIJKLMNOPQRSTUUUUUUVV', giving
 classes 0-19 for the amino acids, 20 for ambiguous residues and 21 for gaps.
@@ -61,7 +60,16 @@ def a3m_to_rows(text: str) -> list[str]:
 
 
 def parse_aln(path: str, max_seqs: int = MAX_SEQS) -> np.ndarray:
-    """Parse an aln (or ``.a3m``) file into an (nseqs, nres) uint8 class matrix."""
+    """Parse an aln (or ``.a3m``) file into an (nseqs, nres) uint8 class matrix.
+
+    An aln file goes through the native parser (``utils/native.py``) where
+    it built; the pure-Python path gives the same matrix.
+    """
+    from . import native
+
+    if not path.endswith(".a3m") and native.available():
+        with open(path, "rb") as fh:
+            return native.encode_aln_bytes(fh.read(), max_seqs)
     with open(path) as fh:
         if path.endswith(".a3m"):
             rows = a3m_to_rows(fh.read())

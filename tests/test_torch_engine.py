@@ -40,7 +40,9 @@ PORT_MODULES = [
     "dmpfold2_tpu_torch.train.dataset", "dmpfold2_tpu_torch.train.checkpoint",
     "dmpfold2_tpu_torch.train.step", "dmpfold2_tpu_torch.train.loop",
     "dmpfold2_tpu_torch.utils.obs", "dmpfold2_tpu_torch.parallel.stream",
-    "dmpfold2_tpu_torch.serve",
+    "dmpfold2_tpu_torch.serve", "dmpfold2_tpu_torch.score",
+    "dmpfold2_tpu_torch.train.evaluate", "dmpfold2_tpu_torch.utils.flops",
+    "dmpfold2_tpu_torch.utils.native", "dmpfold2_tpu_torch.utils.assets",
 ]
 
 
@@ -120,14 +122,6 @@ def test_folder_defaults_to_cuda(monkeypatch, toy_tree):
 def test_no_weights_raises_without_download():
     with pytest.raises(FileNotFoundError, match="does not download"):
         aln_to_coords(EXAMPLE_ALN, device="cpu")
-
-
-@pytest.mark.parametrize("argv,match", [
-    (["--precision", "fp32_strict"], "not yet ported"),
-])
-def test_cli_not_ported_options_raise(argv, match, toy_npz):
-    with pytest.raises(NotImplementedError, match=match):
-        run_dmpfold(["-i", EXAMPLE_ALN, "-d", "cpu", "-w", toy_npz] + argv)
 
 
 def test_cli_bf16_fold_writes_pdb(toy_npz, capsys):
