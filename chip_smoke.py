@@ -62,6 +62,26 @@ Phases, each printing one JSON line:
    whole PDB, requests coalesced, every inference kernel launched, req/s
    and latency percentiles; then each inference kernel's device time and
    bound at the batch shapes (B 8, L 256; refine also at B 16).
+8a. multi  -- several devices and processes on the one card, bf16: (a) the
+   batch engine over ``make_mesh()`` (every visible card) on phase batch's
+   eight 256 x 88 targets, B 8, ``-n 1 -m 10``, the same bits as without a
+   mesh; (b) a mesh of two replicas on cuda:0 (B 8 split 4 + 4, each shard
+   on its own thread and stream): the same bits per target as (a), or else
+   confidences at ``-n 0 -m 0`` within phase cpu's bf16 bound, recorded, and
+   one set of launches per shard (path "batch bf16 mesh"); (c) the service
+   over that mesh, 16 concurrent PF10963 requests, every response a whole
+   PDB; (d) two processes on cuda:0 over gloo (NCCL refuses two ranks on one
+   GPU; this script run with ``--ddp-rank``), DDP ``train_step``s on two
+   PF10963 samples split 1 + 1, nloops 0 and refine 0 in bf16 and fp32 (and
+   fp32 with the coordinate head scaled as phase train's "spread"), then
+   bf16 at nloops 3, refine 10 (path "train bf16 ddp"), each against the same
+   arithmetic in one process (each sample at B 1 at its global slot,
+   gradients summed): each sample's loss within 1e-5 relative and the
+   gradient cosine >= 0.9999 per top-level group; against the
+   single-process step at B 2 the random model's fp32 losses and the spread
+   model's gradient cosines, the rest of that comparison recorded (see
+   ``DDP_STEPS``); both ranks' parameters the same bits; (e)
+   an NCCL group of one process: the step the plain step's bits. About 1 min.
 8b. evaluate -- ``train/evaluate.py`` on eight seeded validation targets in
    two buckets, batch 8, ``-n 10 -m 100``, in bf16 and fp32_strict: every
    target scored, each record equal to ``score.tm_score`` of its fold;
@@ -83,7 +103,8 @@ against autograd through the plain version, and times both directions.
 Then the ``kernels`` line (launches from phase 4: the fp32 fold for vgru,
 rgru and refine, the bf16 fold for the two trunk kernels; from phase 9's
 micro-steps for conv5x5_maxout_diff; ``launches_by_path`` gives each path's
-own count, ``batch_shape`` the time and bound at the batch shapes), and last
+own count, phase multi's "batch bf16 mesh" and "train bf16 ddp" (both
+ranks) among them, ``batch_shape`` the time and bound at the batch shapes), and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits nonzero without the last
 line. It imports neither JAX nor the JAX package.
 """
@@ -1824,6 +1845,424 @@ def phase_serve(params) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- multi
+#
+# Phase multi: several devices and processes on the one card. (a) the batch
+# engine over make_mesh() (every visible card) against the mesh-less one,
+# the same bits; (b) a mesh of two replicas on cuda:0 (B 8 split 4 + 4, each
+# shard on its own thread and stream): the same bits per target as (a), or
+# else phase cpu's bf16 bound on the confidences at -n 0 -m 0, recorded;
+# (c) the service over that mesh; (d) two processes on cuda:0 over gloo (NCCL
+# refuses two ranks on one GPU), DDP train_steps on two "pf"-like samples
+# (micro-batch 2 split 1 + 1); (e) an NCCL group of one process, whose step is
+# the plain step's bits.
+#
+# (d)'s references. A rank runs each sample at B 1 and the single-process
+# step runs both at B 2; cuBLAS picks its GEMM kernels by the rows (B x L), so
+# the two differ in the order of fp32 sums, and the random model's collapsed
+# trace amplifies that in the gradient: measured on one H100, gradient
+# cosines of 0.9974-0.99993 (fp32) and 0.41-0.65 (bf16) between the B 2 step
+# and the same step taken as B 1 + B 1 in one process, losses 3.6e-6 and
+# 4.8e-5 apart, and one fp32 ulp in every weight moves the B 2 step's
+# gradient as far (scripts/ddp_batch_witness.py). So each step is held
+# against that same arithmetic in one process, each sample at B 1 at its
+# global slot and the gradients summed as the all-reduce sums them ("shard
+# program"); against the B 2 step by the fp32 losses, and by the gradient
+# cosine on the "spread" model (the coordinate head scaled by HEAD_SCALE, as
+# phase train), whose gradient the rounding floor moves less (0.999993 for
+# one ulp); the rest is recorded.
+MULTI_ITERATIONS, MULTI_MINSTEPS = 1, MINSTEPS // 10
+DDP_SEED = 21
+DDP_LOSS_RTOL = 1e-5     # each sample's loss against its reference
+DDP_GRAD_COS = 0.9999    # per top-level parameter group, before the update
+DDP_TIMEOUT_S = 600
+# (precision, nloops, refine_steps, model): the held steps, then the deeper one
+DDP_STEPS = (("bf16", 0, 0, "random"), ("fp32", 0, 0, "random"), ("fp32", 0, 0, "spread"),
+             ("bf16", 3, 10, "random"))
+
+
+def _ddp_batch(data_dir: str):
+    """The two samples ("pf" and "pf2": PF10963's alignment, two seeded
+    82-residue targets) as one micro-batch."""
+    from dmpfold2_tpu_torch.train.dataset import DMPDataset, pad_to_bucket
+    from dmpfold2_tpu_torch.train.step import TrainBatch
+
+    dataset = DMPDataset([["pf"], ["pf2"]], data_dir, augment=False)
+    return TrainBatch(*pad_to_bucket([dataset[0], dataset[1]]))
+
+
+def _write_ddp_data(root: str, rng) -> None:
+    os.makedirs(os.path.join(root, "tdb"))
+    os.makedirs(os.path.join(root, "aln"))
+    for name in ("pf", "pf2"):
+        with open(EXAMPLE_ALN) as src, open(os.path.join(root, "aln", f"{name}.aln"), "w") as dst:
+            dst.write(src.read())
+        _write_tdb(os.path.join(root, "tdb", f"{name}.tdb"), _chain(NRES, rng))
+
+
+def _by_group(weights, grads) -> dict:
+    """Gradients in ``leaves`` order, flattened per top-level group, on the CPU."""
+    from dmpfold2_tpu_torch.train.step import leaves
+
+    out, k = {}, 0
+    for name in sorted(weights):  # leaves() walks the top-level groups in this order
+        n = len(leaves(weights[name]))
+        out[name] = torch.cat([g.detach().float().cpu().reshape(-1) for g in grads[k:k + n]])
+        k += n
+    return out
+
+
+def _ddp_steps(params, batch, device, mesh=None, steps=DDP_STEPS) -> list:
+    """Each of ``steps`` from fresh weights and optimizer on ``batch`` (this
+    rank's shard under a mesh): metrics, the gradient Adam was handed (after
+    the all-reduce) per top-level group, a hash of the parameters after the
+    update, the launch counts and the wall."""
+    import hashlib
+
+    from dmpfold2_tpu_torch.train import step
+
+    out = []
+    for precision, nloops, refine_steps, model in steps:
+        weights = step.trainable(params, device)
+        if model == "spread":
+            with torch.no_grad():
+                weights["coord_fc"].mul_(HEAD_SCALE)
+        optimizer = step.make_optimizer(weights, 1e-4)
+        handed, real = [], step.Optimizer.update
+
+        def update(self, g, handed=handed, real=real):
+            handed.append(list(g))
+            return real(self, g)
+
+        step.Optimizer.update = update
+        try:
+            _reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step.train_step(weights, optimizer, batch, DDP_SEED, nloops=nloops,
+                                      refine_steps=refine_steps, precision=precision, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_counters()
+        finally:
+            step.Optimizer.update = real
+        digest = hashlib.sha256()
+        for p in step.leaves(weights):
+            digest.update(p.detach().cpu().numpy().tobytes())
+        out.append({"precision": precision, "nloops": nloops, "refine_steps": refine_steps,
+                    "model": model, "metrics": metrics, "grads": _by_group(weights, handed[0]),
+                    "params_sha256": digest.hexdigest(), "launches": launches, "wall_s": wall})
+        del weights, optimizer, handed
+    return out
+
+
+def _shard_program(params, batch, device, precision: str, nloops: int, refine_steps: int,
+                   model: str):
+    """A DDP step's arithmetic in one process: each sample alone (B 1) at its
+    global slot of the micro-batch, as its rank runs it (train_step's draws,
+    dropout seed and remat tier), the gradients summed as the all-reduce sums
+    them -> (sample losses, gradient per top-level group)."""
+    from dmpfold2_tpu_torch.ops.dropout import fold_in
+    from dmpfold2_tpu_torch.train import step
+
+    weights = step.trainable(params, device)
+    if model == "spread":
+        with torch.no_grad():
+            weights["coord_fc"].mul_(HEAD_SCALE)
+    params_l = step.leaves(weights)
+    total, l_pad = batch.alnmat.shape[0], batch.alnmat.shape[2]
+    losses, grads = [], None
+    for i in range(total):
+        loss, metrics = step.batch_loss_native(
+            weights, torch.from_numpy(batch.alnmat[i:i + 1]).to(device),
+            torch.from_numpy(batch.targets[i:i + 1]).to(device), batch.nseqs[i:i + 1],
+            batch.nres[i:i + 1], [step.draw_prep(fold_in(DDP_SEED, i), l_pad)], nloops=nloops,
+            refine_steps=refine_steps, dropout_seed=fold_in(fold_in(DDP_SEED, 0), 2),
+            precision=precision, remat=step.resolve_remat(weights, 1, l_pad, nloops,
+                                                          precision == "bf16"),
+            slot_offset=i, global_batch=total)
+        g = torch.autograd.grad(loss, params_l, allow_unused=True)
+        g = [torch.zeros_like(p) if x is None else x for p, x in zip(params_l, g)]
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        losses += metrics["sample_loss"].tolist()
+    return losses, _by_group(weights, grads)
+
+
+def _ddp_worker(rank: int, port: int, data_dir: str, out_dir: str) -> None:
+    """One of two ranks on cuda:0 (``chip_smoke.py --ddp-rank K PORT DATA OUT``)."""
+    from dmpfold2_tpu_torch.models.gruresnet import init_params
+    from dmpfold2_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    device = initialize_distributed(f"127.0.0.1:{port}", 2, rank, device="cuda:0",
+                                    backend="gloo")
+    mesh = make_mesh()
+    batch = _ddp_batch(data_dir)
+    shard = type(batch)(*(a[rank:rank + 1] for a in batch))
+    steps = _ddp_steps(init_params(seed=0, width=WIDTH, cwidth=CWIDTH, num_blocks=BLOCKS),
+                       shard, device, mesh)
+    if rank == 0:  # both ranks hold the same reduced gradient: one copy
+        torch.save([s["grads"] for s in steps], os.path.join(out_dir, "grads.pt"))
+    summary = [{k: v for k, v in s.items() if k != "grads"} for s in steps]
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump({"mesh": mesh.shape, "steps": summary}, fh)
+
+
+def _compare(ddp_loss, ddp_grads, ref_loss, ref_grads) -> dict:
+    rel = [abs(a - b) / abs(b) for a, b in zip(ddp_loss, ref_loss)]
+    cos = {name: _cosine(ddp_grads[name], g) for name, g in ref_grads.items()}
+    return {"sample_loss": ref_loss, "loss_rel_diff": rel, "grad_cosine": cos,
+            "losses_held": max(rel) <= DDP_LOSS_RTOL,
+            "grads_held": min(cos.values()) >= DDP_GRAD_COS}
+
+
+def _ddp_two_ranks(params, data_dir: str) -> dict:
+    """(d): two processes on cuda:0 over gloo against one process."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.empty_cache()  # room for the two ranks beside this process
+    with tempfile.TemporaryDirectory() as out_dir:
+        logs = [open(os.path.join(out_dir, f"rank{k}.log"), "w+b") for k in (0, 1)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank", str(k),
+                                   str(port), data_dir, out_dir], cwd=REPO, stdout=logs[k],
+                                  stderr=subprocess.STDOUT) for k in (0, 1)]
+        try:
+            for p in procs:
+                p.wait(timeout=DDP_TIMEOUT_S)
+        finally:
+            for p in procs:  # never leave a rank behind
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_wall = time.perf_counter() - t0
+        for p, fh in zip(procs, logs):
+            fh.seek(0)
+            text = fh.read().decode(errors="replace")
+            fh.close()
+            if p.returncode != 0:
+                raise AssertionError(f"DDP rank failed ({p.returncode}):\n{text[-4000:]}")
+        ranks = [json.load(open(os.path.join(out_dir, f"rank{k}.json"))) for k in (0, 1)]
+        ddp_grads = torch.load(os.path.join(out_dir, "grads.pt"))
+    batch = _ddp_batch(data_dir)
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    whole = _ddp_steps(params, batch, device)
+    single_wall = time.perf_counter() - t0
+    rows, checks = [], {}
+    for k, (precision, nloops, refine_steps, model) in enumerate(DDP_STEPS):
+        tag = f"{model} {precision} nloops {nloops} refine {refine_steps}"
+        got = [r["steps"][k] for r in ranks]
+        ddp_loss = [x for r in got for x in r["metrics"]["sample_loss"]]
+        refs = {"whole batch": _compare(ddp_loss, ddp_grads[k],
+                                        whole[k]["metrics"]["sample_loss"], whole[k]["grads"]),
+                "shard program": _compare(ddp_loss, ddp_grads[k], *_shard_program(
+                    params, batch, device, precision, nloops, refine_steps, model))}
+        row = {"precision": precision, "nloops": nloops, "refine_steps": refine_steps,
+               "model": model,
+               "sample_loss_ddp": ddp_loss, "references": refs,
+               "loss_ranks": [r["metrics"]["loss"] for r in got],
+               "skipped": [r["metrics"]["skipped"] for r in got],
+               "params_same_bits_across_ranks": got[0]["params_sha256"] == got[1]["params_sha256"],
+               "launches_by_rank": [r["launches"] for r in got],
+               "wall_s_by_rank": [r["wall_s"] for r in got], "whole_batch_wall_s": whole[k]["wall_s"]}
+        rows.append(row)
+        shard = refs["shard program"]
+        checks[f"{tag}: losses and gradients vs the shard program"] = (
+            shard["losses_held"] and shard["grads_held"])
+        if (precision, nloops, model) == ("fp32", 0, "random"):
+            checks[f"{tag}: losses vs the whole batch"] = refs["whole batch"]["losses_held"]
+        if (precision, nloops, model) == ("fp32", 0, "spread"):
+            checks[f"{tag}: gradients vs the whole batch"] = refs["whole batch"]["grads_held"]
+        checks[f"{tag}: params same bits across ranks"] = row["params_same_bits_across_ranks"]
+        checks[f"{tag}: not skipped"] = all(s == 0.0 for s in row["skipped"])
+    checks["mesh 2 x 1 on each rank"] = all(r["mesh"] == {"data": 2, "seq": 1} for r in ranks)
+    return {"rows": rows, "checks": checks, "ranks_wall_s": ranks_wall,
+            "whole_batch_wall_s": single_wall,
+            "launches": {"conv5x5_maxout_diff": sum(
+                r["conv5x5_maxout_diff"] for r in rows[-1]["launches_by_rank"])},
+            "loss_rtol": DDP_LOSS_RTOL, "grad_cosine_min": DDP_GRAD_COS}
+
+
+def _nccl_group_of_one(params, data_dir: str) -> dict:
+    """(e): the held DDP step in an NCCL group of one process against the plain
+    step; cuDNN's deterministic algorithms, so that two plain steps agree."""
+    import socket
+
+    import torch.distributed as dist
+
+    from dmpfold2_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    batch = _ddp_batch(data_dir)
+    held = DDP_STEPS[:1]  # the held bf16 step
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = _ddp_steps(params, batch, torch.device("cuda"), steps=held)[0]
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        initialize_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda:0")
+        init_s = time.perf_counter() - t0
+        try:
+            backend = dist.get_backend()
+            grouped = _ddp_steps(params, batch, torch.device("cuda", 0), make_mesh(), held)[0]
+        finally:
+            dist.destroy_process_group()
+        same = (grouped["params_sha256"] == plain["params_sha256"]
+                and grouped["metrics"] == plain["metrics"])
+        repeat_same = None
+        if not same:  # is the plain step itself reproducible?
+            repeat_same = _ddp_steps(params, batch, torch.device("cuda"), steps=held)[0][
+                "params_sha256"] == plain["params_sha256"]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"backend": backend, "init_s": init_s, "same_bits_as_plain": same,
+            "plain_repeat_same_bits": repeat_same, "loss_grouped": grouped["metrics"]["loss"],
+            "loss_plain": plain["metrics"]["loss"], "wall_s": grouped["wall_s"],
+            "plain_wall_s": plain["wall_s"]}
+
+
+def phase_multi(params) -> dict:
+    """Phase multi (a)-(e); returns the launch counts of its two new paths."""
+    import threading
+    import urllib.request
+
+    from dmpfold2_tpu_torch.engine.buckets import bucket_shape
+    from dmpfold2_tpu_torch.parallel.mesh import make_mesh
+    from dmpfold2_tpu_torch.parallel.stream import BatchFolder, Target
+    from dmpfold2_tpu_torch.serve import serve
+
+    t_phase = time.perf_counter()
+    targets = [(n, a) for n, a in _batch_targets() if bucket_shape(*a.shape) == BATCH_BUCKETS[0]]
+    tgts = [Target(a) for _, a in targets]
+    checks, walls = {}, {}
+    events: list = []
+    log = contextlib.ExitStack()
+    log.enter_context(_logged_events(events))
+
+    def run(bf, iterations=MULTI_ITERATIONS, minsteps=MULTI_MINSTEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bf.fold_many(tgts, iterations, minsteps)
+        return out, time.perf_counter() - t0
+
+    # (a) every visible card against no mesh: the same program on one card
+    plain = BatchFolder(params, device="cuda", batch_size=BATCH_SIZE, precision="bf16")
+    run(plain)  # warm-up
+    want, walls["no_mesh_s"] = run(plain)
+    mesh_all = make_mesh()
+    every = BatchFolder(params, mesh=mesh_all, batch_size=BATCH_SIZE, precision="bf16")
+    run(every)
+    got_a, walls["mesh_all_s"] = run(every)
+    same = lambda x, y: np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])  # noqa: E731
+    checks["(a) make_mesh() same bits as no mesh"] = all(same(g, w) for g, w in zip(got_a, want))
+    every.close()
+
+    # (b) two replicas on cuda:0, B 8 split 4 + 4
+    mesh2 = make_mesh(2, devices=["cuda:0", "cuda:0"])
+    two = BatchFolder(params, mesh=mesh2, batch_size=BATCH_SIZE, precision="bf16")
+    run(two)  # warm-up: B 4 shapes
+    _reset_counters()
+    got_b, walls["two_replicas_s"] = run(two)
+    launches_b = _read_counters()
+    same_b = [same(g, a) for g, a in zip(got_b, got_a)]
+    diff_b = {"max_abs_conf": max(float(np.abs(g[1] - a[1]).max()) for g, a in zip(got_b, got_a)),
+              "max_abs_ca": max(float(np.abs(g[0][:, 1] - a[0][:, 1]).max())
+                                for g, a in zip(got_b, got_a))}
+    held_b = None
+    if not all(same_b):  # phase batch's bf16 bound, at -n 0 -m 0
+        zero_b, _ = run(two, 0, 0)
+        zero_a, _ = run(plain, 0, 0)
+        held_b = max(float(np.abs(g[1] - a[1]).max()) for g, a in zip(zero_b, zero_a))
+        checks["(b) confidences at -n 0 -m 0 within bf16 bound"] = held_b <= CONF_BF16_TOL
+    passes = MULTI_ITERATIONS + 1  # one set of launches per shard (EXPECTED_LAUNCHES' rule)
+    expected = {"vgru": 2, "rgru": 2 * (2 + 3 * passes), "refine": 2 * 2,
+                "conv5x5_maxout": 2 * BLOCKS * passes, "gemm_maxout": 2 * passes,
+                "conv5x5_maxout_diff": 0}
+    checks["(b) launches: one set per shard"] = launches_b == expected
+    for (name, alnmat), res in zip(targets, got_b):
+        checks[f"(b) {name} whole"] = all(_fold_checks(res[0], res[1], alnmat).values())
+    two.close()
+    plain.close()
+
+    # (c) the service over the two-replica mesh
+    server = serve(params, host="127.0.0.1", port=0, precision="bf16", max_batch=BATCH_SIZE,
+                   mesh=mesh2)
+    service = server.fold_service
+    t0 = time.perf_counter()
+    service.warmup(shapes=((N_PAD, L_PAD),))
+    walls["serve_warmup_s"] = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = (f"http://127.0.0.1:{server.server_address[1]}/fold?iterations={ITERATIONS}"
+           f"&minsteps={MINSTEPS}")
+    body = _aln_text(targets[0][1]).encode()
+    out = [None] * SERVE_CLIENTS
+
+    def client(i):
+        try:
+            req = urllib.request.Request(url, data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                out[i] = (resp.status, resp.read().decode())
+        except Exception as exc:  # noqa: BLE001 - reported in the checks
+            out[i] = (None, repr(exc))
+
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=900)
+    walls["serve_16_s"] = time.perf_counter() - t0
+    checks["(c) all 200"] = all(r is not None and r[0] == 200 for r in out)
+    checks["(c) 406 ATOM lines"] = all(
+        r is not None and r[0] == 200
+        and sum(line.startswith("ATOM") for line in r[1].splitlines()) == 406 for r in out)
+    serve_stats = dict(service.batch_stats)
+    server.shutdown()
+    service.close()
+    server.server_close()
+    thread.join(timeout=60)
+    service.batcher.close()
+    log.close()
+    checks["no batch_error"] = not any(e in ("batch_error", "target_error") for e in events)
+
+    # (d) and (e)
+    with tempfile.TemporaryDirectory() as data_dir:
+        _write_ddp_data(data_dir, np.random.default_rng(5))
+        t0 = time.perf_counter()
+        ddp = _ddp_two_ranks(params, data_dir)
+        walls["ddp_s"] = time.perf_counter() - t0
+        checks.update({f"(d) {k}": v for k, v in ddp["checks"].items()})
+        t0 = time.perf_counter()
+        nccl = _nccl_group_of_one(params, data_dir)
+        walls["nccl_one_s"] = time.perf_counter() - t0
+        checks["(e) NCCL group of one: same bits as the plain step"] = (
+            nccl["backend"] == "nccl" and nccl["same_bits_as_plain"])
+    walls["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "multi", "precision": "bf16", "targets": len(tgts), "batch_size": BATCH_SIZE,
+          "iterations": MULTI_ITERATIONS, "minsteps": MULTI_MINSTEPS,
+          "mesh_all": mesh_all.shape, "mesh_two_replicas": mesh2.shape,
+          "targets_per_s": {"no_mesh": len(tgts) / walls["no_mesh_s"],
+                            "mesh_all": len(tgts) / walls["mesh_all_s"],
+                            "two_replicas": len(tgts) / walls["two_replicas_s"]},
+          "two_replicas_same_bits": same_b, "two_replicas_diff": diff_b,
+          "two_replicas_conf_n0_m0": held_b, "launches_two_replicas": launches_b,
+          "serve": {"requests": SERVE_CLIENTS, "req_per_s": SERVE_CLIENTS / walls["serve_16_s"],
+                    "batching": serve_stats, "errors": [r[1][:200] for r in out
+                                                        if r is None or r[0] != 200]},
+          "ddp": {k: v for k, v in ddp.items() if k != "checks"}, "nccl_one": nccl,
+          "walls_s": walls, "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"multi checks failed: {failed}")
+    return {"batch bf16 mesh": launches_b, "train bf16 ddp": ddp["launches"]}
+
+
 # kernel-name fragments -> category, first match wins
 PROFILE_CATEGORIES = (
     ("vgru", ("vgru_kernel",)), ("rgru", ("rgru",)), ("refine", ("refine_kernel",)),
@@ -2435,6 +2874,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of phase multi's (d)
+        rank, port, data_dir, out_dir = sys.argv[2:6]
+        _ddp_worker(int(rank), int(port), data_dir, out_dir)
+        return
     from dmpfold2_tpu_torch.models.gruresnet import init_params
 
     info = phase_device()
@@ -2454,6 +2897,7 @@ def main() -> None:
     strict = phase_strict(params)
     paths["fold fp32_strict"], paths["batch fp32_strict"] = strict["fold"], strict["batch"]
     paths["serve bf16"] = phase_serve(params)
+    paths.update(phase_multi(params))
     with tempfile.TemporaryDirectory() as eval_dir:
         _write_eval_data(eval_dir, np.random.default_rng(3))
         for precision, counts in phase_evaluate(params, eval_dir).items():

@@ -92,12 +92,13 @@ def gru_scan_projected(wh: torch.Tensor, bh: torch.Tensor, xproj: torch.Tensor,
 
 
 def bigru_stack(layers, x: torch.Tensor, valid_len, *, dropout_rate: float = 0.0,
-                seed: int | None = None) -> torch.Tensor:
+                seed: int | None = None, shard=None) -> torch.Tensor:
     """Multi-layer biGRU (T, B, C) -> (T, B, 2H), the JAX ``gru.bigru_stack``,
     differentiable (training; the fold's stack is ``kernels/rgru.py``'s).
 
     With a ``seed``, dropout of ``dropout_rate`` follows every layer but the
-    last (torch's semantics), its mask drawn from ``fold_in(seed, layer)``.
+    last (torch's semantics), its mask drawn from ``fold_in(seed, layer)``;
+    ``shard`` as ``ops.dropout.keep_mask`` takes it, along B.
     """
     out = x
     for layer_idx, layer in enumerate(layers):
@@ -109,7 +110,7 @@ def bigru_stack(layers, x: torch.Tensor, valid_len, *, dropout_rate: float = 0.0
                                              reverse=reverse))
         out = torch.cat(passes, dim=-1)
         if seed is not None and dropout_rate > 0.0 and layer_idx < len(layers) - 1:
-            out = dropout(out, dropout_rate, fold_in(seed, layer_idx))
+            out = dropout(out, dropout_rate, fold_in(seed, layer_idx), shard=shard, batch_axis=1)
     return out
 
 

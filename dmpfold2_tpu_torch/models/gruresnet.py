@@ -253,7 +253,7 @@ def _bf16_trunk_pass(packed, pair: torch.Tensor, x2: torch.Tensor, pair_mask: to
 
 def forward_batched(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
                     nloops: int, refine_steps: int, *, rngs: dict | None = None,
-                    remat=False, compute_dtype=torch.float32):
+                    remat=False, compute_dtype=torch.float32, shard=None):
     """Batched training forward, differentiable: (B, N, L) alignments ->
     ((B, L, 5, 3) coords, (B, L) confidences).
 
@@ -270,6 +270,9 @@ def forward_batched(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
       nloops: recycles (an int: the loop is unrolled for the backward).
       rngs: dropout seeds {"hgru", "init", "recycle"} (``ops.dropout``); None
           turns dropout off. Recycle i uses ``fold_in(rngs["recycle"], i)``.
+      shard: ``(offset, total)``: this batch is rows ``offset ..`` of a
+          data-parallel global batch of ``total``; each dropout mask is drawn
+          at the global shape and these rows kept (``ops.dropout``).
       remat: the step's tier (``train/step.py:resolve_remat``): False, True or
           "save_conv" for the trunk; "recycle" / "recycle_save_conv" also
           checkpoint each trunk-and-coordinate pass (full-body or save_conv
@@ -296,7 +299,7 @@ def forward_batched(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
                                        remat_chunk=128 if remat else 0)
     hin = seq_embed.reshape(batch, l_pad, -1).transpose(0, 1)                         # (L, B, 512)
     mat1d = gru.bigru_stack(params["hgru"], hin, nres_t, dropout_rate=GRU_DROPOUT,
-                            seed=seed("hgru"))
+                            seed=seed("hgru"), shard=shard)
     mat1d = mat1d.transpose(0, 1) * row_mask[..., None]                               # (B, L, 512)
     pair = mat1d[:, :, None, :] * mat1d[:, None, :, :]
     resinp_base = torch.cat([pair, x2[..., :-1]], dim=3)                              # 954 channels
@@ -308,13 +311,14 @@ def forward_batched(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
             trunk_seed, coord_seed = fold_in(it_seed, 0), fold_in(it_seed, 1)
         resinp = torch.cat([resinp_base, dmap_channel[..., None]], dim=3)
         out = trunk_apply(params["trunk"], resinp, pair_mask[..., None],
-                          dropout_seed=trunk_seed, remat=remat, compute_dtype=compute_dtype)
+                          dropout_seed=trunk_seed, remat=remat, compute_dtype=compute_dtype,
+                          dropout_shard=shard)
         dm = out[..., 0]
         conf = (out[..., 1] * row_mask[:, None, :]).sum(dim=2) / nres_f[:, None]
         mds = torch.stack([mds_coords(dm[b], nres_l[b]) for b in range(batch)])    # (B, L, 8)
         coordembed = torch.cat([mat1d, mds], dim=2).transpose(0, 1)
         gru_out = gru.bigru_stack(params["coord_gru"], coordembed, nres_t,
-                                  dropout_rate=GRU_DROPOUT, seed=coord_seed)
+                                  dropout_rate=GRU_DROPOUT, seed=coord_seed, shard=shard)
         return gru_out.transpose(0, 1) @ params["coord_fc"], conf                     # (B, L, 3)
 
     def iteration(dmap_channel, it_seed):

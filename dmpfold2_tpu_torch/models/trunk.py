@@ -216,22 +216,23 @@ def _block_conv(mx, x: torch.Tensor) -> torch.Tensor:
 
 
 def resnet_block(p, x: torch.Tensor, mask: torch.Tensor, *, seed: int | None = None,
-                 remat_tail: bool = False) -> torch.Tensor:
+                 remat_tail: bool = False, shard=None) -> torch.Tensor:
     """One residual block (reference network.py:85-103, JAX
     ``trunk.resnet_block``), NHWC in x's dtype.
 
     ``seed``: dropout 0.2 before the conv, elementwise then channelwise, its
     masks drawn from ``seed`` (so a replay under checkpointing draws the same
-    ones). ``remat_tail``: checkpoint only the norm + scse + residual tail, so
+    ones; ``shard`` as ``ops.dropout.keep_mask`` takes it). ``remat_tail``:
+    checkpoint only the norm + scse + residual tail, so
     the conv output (and, in bf16, the int8 index) is kept for the backward
     and only the tail is replayed.
     """
     mx = p["maxout"]
     out = x
     if seed is not None:
-        out = dropout(out, BLOCK_DROPOUT, fold_in(seed, 0))
+        out = dropout(out, BLOCK_DROPOUT, fold_in(seed, 0), shard=shard)
         out = dropout(out, BLOCK_DROPOUT, fold_in(seed, 1),
-                      shape=(out.shape[0], 1, 1, out.shape[3]))
+                      shape=(out.shape[0], 1, 1, out.shape[3]), shard=shard)
     y = _block_conv(mx, out)
 
     def tail(y_, x_):
@@ -246,12 +247,14 @@ def resnet_block(p, x: torch.Tensor, mask: torch.Tensor, *, seed: int | None = N
 
 def trunk_apply(params, x: torch.Tensor, mask: torch.Tensor, *,
                 dropout_seed: int | None = None, remat=False,
-                compute_dtype=torch.float32) -> torch.Tensor:
+                compute_dtype=torch.float32, dropout_shard=None) -> torch.Tensor:
     """(B, L, L, 955) NHWC -> (B, L, L, 2) fp32: distance-map + confidence
     channels, differentiable.
 
     ``mask``: (B, L, L, 1) float validity mask. ``dropout_seed`` (training):
     block i's dropout from ``fold_in(dropout_seed, i)``; None is no dropout.
+    ``dropout_shard``: ``(offset, total)`` of this batch in a data-parallel
+    global batch (``ops.dropout.keep_mask``).
     ``remat``: False; True checkpoints each whole block (one carry per block
     is kept); ``"save_conv"`` checkpoints each block's tail only (JAX
     ``trunk_apply``'s tiers, picked by ``train/step.py:resolve_remat``).
@@ -261,9 +264,11 @@ def trunk_apply(params, x: torch.Tensor, mask: torch.Tensor, *,
     for i, block in enumerate(params["blocks"]):
         seed = None if dropout_seed is None else fold_in(dropout_seed, i)
         if remat is True and torch.is_grad_enabled():
-            out = checkpoint(resnet_block, block, out, mask, seed=seed, use_reentrant=False)
+            out = checkpoint(resnet_block, block, out, mask, seed=seed, shard=dropout_shard,
+                             use_reentrant=False)
         else:
-            out = resnet_block(block, out, mask, seed=seed, remat_tail=remat == "save_conv")
+            out = resnet_block(block, out, mask, seed=seed, remat_tail=remat == "save_conv",
+                               shard=dropout_shard)
     c_out = params["out_w"].shape[0]
     out = out.float() @ params["out_w"].reshape(c_out, -1).T + params["out_b"]
     return out * mask.float()

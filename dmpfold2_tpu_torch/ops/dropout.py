@@ -25,14 +25,25 @@ def fold_in(seed: int, data: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
-def keep_mask(seed: int, shape, rate: float, device) -> torch.Tensor:
-    """Bool mask of ``shape``, each entry kept with probability 1 - ``rate``."""
+def keep_mask(seed: int, shape, rate: float, device, shard=None,
+              batch_axis: int = 0) -> torch.Tensor:
+    """Bool mask of ``shape``, each entry kept with probability 1 - ``rate``;
+    with ``shard=(offset, total)`` the rows ``offset ..`` along ``batch_axis``
+    of the mask of the global shape (``total`` rows)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+    if shard is None:
+        return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+    offset, total = shard
+    full = list(shape)
+    full[batch_axis] = total
+    keep = torch.rand(full, generator=gen, device=device) < 1.0 - rate
+    return keep.narrow(batch_axis, offset, shape[batch_axis])
 
 
-def dropout(x: torch.Tensor, rate: float, seed: int, shape=None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, seed: int, shape=None, shard=None,
+            batch_axis: int = 0) -> torch.Tensor:
     """``where(keep, x / (1 - rate), 0)`` in ``x``'s dtype; ``shape`` (default
-    ``x.shape``) broadcasts the mask, e.g. (B, 1, 1, C) for channelwise."""
-    keep = keep_mask(seed, x.shape if shape is None else shape, rate, x.device)
+    ``x.shape``) broadcasts the mask, e.g. (B, 1, 1, C) for channelwise;
+    ``shard`` and ``batch_axis`` as :func:`keep_mask` takes them."""
+    keep = keep_mask(seed, x.shape if shape is None else shape, rate, x.device, shard, batch_axis)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

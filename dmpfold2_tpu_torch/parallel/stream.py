@@ -1,8 +1,7 @@
 """Batch folding engine: many targets, grouped by shape bucket, folded in
-batches on one device.
+batches, on one device or data-parallel over a mesh.
 
-Counterpart of ``dmpfold2_tpu/parallel/stream.py`` on one device (the mesh,
-its multi-host ownership and ``global_counters`` wait for multi-GPU):
+Counterpart of ``dmpfold2_tpu/parallel/stream.py``:
 
   * targets are grouped by (nseqs, nres) shape bucket,
   * each group is cut into batches of ``batch_size``; a partial batch is
@@ -13,6 +12,18 @@ its multi-host ownership and ``global_counters`` wait for multi-GPU):
     whole batch, with per-target ``nseqs`` and ``nres``,
   * results come back in input order.
 
+Data parallelism (``mesh``, ``parallel/mesh.py``): the batch size is a
+multiple of the mesh's data axis and each batch splits into ``batch / n_data``
+slots per data shard. The parameters are uploaded once per device (one held
+:class:`Folder` each); each local shard runs the same ``fold_padded_batch``,
+with the same kernels, on its own device, worker threads and streams, as
+JAX's ``shard_map`` runs the program per shard. In a process group every
+process walks the same work list, folds only the slots of its own shards,
+and after each batch's wait gathers the results (``mesh.replicate_result``,
+on the caller's thread: workers issue no collective), so every process holds
+every result. Counters count local targets; ``global_counters()`` merges
+them across the group.
+
 Pipelining: up to ``max_inflight`` batches are in flight. ``dispatch`` pads a
 batch on the host and hands it to a worker thread, which uploads it, folds it
 on its own CUDA stream and fetches the results; ``retire`` waits for that
@@ -21,16 +32,18 @@ on the device inside: ``torch.linalg.eigh`` checks its status on the host
 once per trunk pass. PyTorch releases the interpreter lock while it launches
 and waits, so one batch's host work overlaps another's device work.
 
-Failure tolerance: a batch that fails, at dispatch or in its worker, is
-folded again target by target on the same device with the same kernels (after
-a CUDA out-of-memory error the allocator's cache is emptied first); a target
-that fails alone gives ``None`` and a ``target_error`` log line.
+Failure tolerance: a batch (a shard of one, under a mesh) that fails, at
+dispatch or in its worker, is folded again target by target on the same
+device with the same kernels (after a CUDA out-of-memory error the
+allocator's cache is emptied first); a target that fails alone gives ``None``
+and a ``target_error`` log line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import queue
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -41,7 +54,8 @@ import torch
 
 from ..engine.buckets import bucket_shape
 from ..engine.fold import Folder, fold_padded_batch, pad_target
-from ..utils.obs import Counters, log_target
+from ..utils.obs import Counters, global_counters, log_target
+from .mesh import Mesh, replicate_result
 
 
 @dataclass
@@ -93,62 +107,109 @@ def _fold_batch(folder: Folder, aln_b: np.ndarray, dmap_b: np.ndarray, nseqs, nr
         return coords.cpu().numpy(), confs.cpu().numpy()
 
 
-class BatchFolder:
-    """Groups targets by bucket and folds them in batches on one device.
+# the CUDA devices on which this process made its first linear-algebra call
+_linalg_ready: set = set()
+_linalg_lock = threading.Lock()
 
-    ``params`` are uploaded once (through a held :class:`Folder`, which also
-    folds requeued targets with the same ``precision`` and ``dca_method``).
-    ``device`` defaults to ``cuda`` and raises without it. ``max_inflight``
-    batches run at once, each on its own worker thread and, on a CUDA device,
-    its own stream. Batches are buckets, so the batch engine always pads to
-    them.
+
+def _load_linalg(device: torch.device) -> None:
+    """torch loads its CUDA linear-algebra library at the first linalg call,
+    and when two threads make that first call at once one of them fails
+    ("lazy wrapper should be called at most once"): make it here, once per
+    device, before any worker runs."""
+    with _linalg_lock:
+        if device not in _linalg_ready:
+            torch.linalg.eigh(torch.eye(2, device=device))
+            _linalg_ready.add(device)
+
+
+class _Shard:
+    """One data shard's resources: the device's held :class:`Folder`,
+    ``depth`` worker threads and, on a CUDA device, as many streams."""
+
+    def __init__(self, folder: Folder, depth: int):
+        self.folder = folder
+        self.executor = ThreadPoolExecutor(depth, thread_name_prefix="dmpfold2-batch")
+        self.streams: queue.Queue = queue.Queue()
+        for _ in range(depth):
+            self.streams.put(torch.cuda.Stream(folder.device)
+                             if folder.device.type == "cuda" else None)
+
+    def run(self, *args):
+        """A worker's job: one batch on a free stream of this shard."""
+        stream = self.streams.get()
+        try:
+            with contextlib.ExitStack() as ctx:
+                if stream is not None:
+                    ctx.enter_context(torch.cuda.device(stream.device))
+                    ctx.enter_context(torch.cuda.stream(stream))
+                return _fold_batch(self.folder, *args)
+        finally:
+            self.streams.put(stream)
+
+
+class BatchFolder:
+    """Groups targets by bucket and folds them in batches, on one device or
+    data-parallel over a ``mesh``.
+
+    ``params`` are uploaded once per device (through a held :class:`Folder`,
+    which also folds requeued targets with the same ``precision`` and
+    ``dca_method``). ``device`` defaults to ``cuda`` and raises without it;
+    with a ``mesh`` (``parallel.mesh.make_mesh``) the mesh's devices are used
+    and ``device`` must be None. ``max_inflight`` batches run at once, each
+    shard of each on its own worker thread and, on a CUDA device, its own
+    stream. Batches are buckets, so the batch engine always pads to them.
     """
 
     def __init__(self, params, device=None, batch_size: int = 1, precision: str = "fp32",
                  verbose: bool = False, counters: Counters | None = None,
-                 max_inflight: int = 2, dca_method: str = "auto"):
-        self.folder = Folder(params, device=device, precision=precision, dca_method=dca_method)
+                 max_inflight: int = 2, dca_method: str = "auto", mesh: Mesh | None = None):
+        if mesh is not None and device is not None:
+            raise ValueError("BatchFolder: pass a device or a mesh, not both")
+        shard_devices = mesh.local_devices if mesh is not None else [device]
+        folders: dict = {}
+        for dev in shard_devices:
+            if dev not in folders:
+                folders[dev] = Folder(params, device=dev, precision=precision,
+                                      dca_method=dca_method)
+        self.mesh = mesh
+        # one held Folder per distinct device, the first shard's first
+        self.folders = list(folders.values())
+        self.folder = self.folders[0]
         self.device = self.folder.device
         self.precision = precision
         self.batch_size = batch_size
         self.verbose = verbose
         self.counters = counters if counters is not None else Counters()
         self.max_inflight = max(int(max_inflight), 1)
-        self._executor = ThreadPoolExecutor(self.max_inflight,
-                                            thread_name_prefix="dmpfold2-batch")
-        self._streams: queue.Queue = queue.Queue()
-        for _ in range(self.max_inflight):
-            self._streams.put(torch.cuda.Stream(self.device) if self.device.type == "cuda"
-                              else None)
-        if self.device.type == "cuda":
-            # torch loads its CUDA linear-algebra library at the first linalg
-            # call, and when two threads make that first call at once one of
-            # them fails ("lazy wrapper should be called at most once"): load
-            # it here, before any worker runs
-            torch.linalg.eigh(torch.eye(2, device=self.device))
-            # the workers' streams read the parameters the current stream uploaded
-            torch.cuda.synchronize(self.device)
+        self._shards = [_Shard(folders[dev], self.max_inflight) for dev in shard_devices]
+        for folder in self.folders:
+            if folder.device.type == "cuda":
+                _load_linalg(folder.device)
+                # the workers' streams read the parameters the current stream uploaded
+                torch.cuda.synchronize(folder.device)
 
     def close(self) -> None:
         """Stop the worker threads once the batches in flight have finished."""
-        self._executor.shutdown(wait=True)
+        for shard in self._shards:
+            shard.executor.shutdown(wait=True)
 
-    def _run_on_stream(self, *args):
-        """A worker's job: one batch on a free stream of this folder."""
-        stream = self._streams.get()
-        try:
-            ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
-            with ctx:
-                return _fold_batch(self.folder, *args)
-        finally:
-            self._streams.put(stream)
+    def global_counters(self) -> Counters:
+        """The whole process group's counters (``utils.obs.global_counters``);
+        a collective in a process group."""
+        return global_counters(self.counters)
 
-    def _fold_single(self, target: Target, iterations: int, minsteps: int):
-        return self.folder.fold(target.alnmat, target.template_ca, iterations, minsteps)
+    def _fold_single(self, target: Target, iterations: int, minsteps: int,
+                     folder: Folder | None = None):
+        """One target alone on ``folder`` (default: the first shard's)."""
+        return (folder or self.folder).fold(target.alnmat, target.template_ca, iterations,
+                                            minsteps)
 
     def fold_many(self, targets: Sequence[Target], iterations: int = 10, minsteps: int = 100):
         """Fold all targets; returns results in input order as
-        [(coords (nres, 5, 3), confs (nres,)) or None for a failed target]."""
+        [(coords (nres, 5, 3), confs (nres,)) or None for a failed target].
+        In a process group every process calls it with the same targets and
+        gets every result."""
         return self.fold_many_async(targets, iterations, minsteps).wait()
 
     def fold_many_async(self, targets: Sequence[Target], iterations: int = 10,
@@ -157,29 +218,46 @@ class BatchFolder:
 
         Pads and hands to the workers up to ``max_inflight`` batches and
         returns a :class:`PendingFolds` whose ``wait()`` drives the rest of
-        the pipeline and returns the result list.
+        the pipeline and returns the result list (in a process group, call
+        ``wait()`` from the main thread: it gathers each batch's results).
         """
         if iterations == "auto":
             raise ValueError("-n auto is single-target only: use a fixed number of "
                              "iterations in batch mode")
-        batch = max(int(self.batch_size), 1)
+        n_data = self.mesh.n_data if self.mesh is not None else 1
+        first_shard = self.mesh.first_shard if self.mesh is not None else 0
+        gather = self.mesh is not None and self.mesh.world_size > 1
+        # the batch splits evenly over the data shards
+        batch = -(-max(int(self.batch_size), 1) // n_data) * n_data
+        per = batch // n_data
         groups: dict[tuple[int, int], list[int]] = {}
         for i, t in enumerate(targets):
             groups.setdefault(bucket_shape(*t.alnmat.shape), []).append(i)
         results: list = [None] * len(targets)
 
         def dispatch(bucket, chunk):
-            """Pad one batch (a partial one repeats its last target) and hand
-            it to a worker; does not wait for the device."""
+            """Pad this process's shards of one batch (a partial batch repeats
+            its last target) and hand each to its shard's workers; does not
+            wait for the device. A shard of padding alone is not folded."""
             take = list(chunk) + [chunk[-1]] * (batch - len(chunk))
-            aln_b, dmap_b, nseqs_b, nres_b = _pad_batch([targets[i] for i in take], *bucket)
-            future = self._executor.submit(self._run_on_stream, aln_b, dmap_b, nseqs_b,
-                                           nres_b, iterations, minsteps)
-            return dict(bucket=bucket, chunk=chunk, pad_to=batch, nseqs_b=nseqs_b,
-                        nres_b=nres_b, future=future, t_start=time.perf_counter())
+            shards = []
+            for j, shard in enumerate(self._shards):
+                lo = (first_shard + j) * per
+                if lo >= len(chunk):
+                    continue
+                rec = dict(shard=shard, chunk=chunk[lo:lo + per])
+                try:
+                    aln_b, dmap_b, nseqs_b, nres_b = _pad_batch(
+                        [targets[i] for i in take[lo:lo + per]], *bucket)
+                    rec.update(nseqs_b=nseqs_b, nres_b=nres_b, future=shard.executor.submit(
+                        shard.run, aln_b, dmap_b, nseqs_b, nres_b, iterations, minsteps))
+                except Exception as exc:  # noqa: BLE001 - dispatch failure: requeue singly
+                    rec["error"] = exc
+                shards.append(rec)
+            return dict(bucket=bucket, chunk=chunk, shards=shards, t_start=time.perf_counter())
 
-        def requeue(bucket, chunk, exc):
-            """A whole batch failed: fold each target alone, on the same
+        def requeue(bucket, chunk, folder, exc):
+            """A batch (shard) failed: fold each target alone, on the same
             device with the same kernels, so one bad target cannot sink its
             batchmates; a target that fails alone is skipped and logged."""
             log_target("batch_failed", 0, 0, bucket, 0.0, None, event="batch_error",
@@ -188,7 +266,7 @@ class BatchFolder:
                 torch.cuda.empty_cache()
             for ti in chunk:
                 try:
-                    results[ti] = self._fold_single(targets[ti], iterations, minsteps)
+                    results[ti] = self._fold_single(targets[ti], iterations, minsteps, folder)
                     self.counters.record(results[ti][0].shape[0])
                 except Exception as exc2:  # noqa: BLE001 - logged; the run goes on
                     results[ti] = None
@@ -196,23 +274,35 @@ class BatchFolder:
                                event="target_error", error=str(exc2)[:200])
 
         def retire(rec):
-            """Wait for one batch in flight and scatter its results."""
-            try:
-                coords, confs = rec["future"].result()
-            except Exception as exc:  # noqa: BLE001 - failure tolerance: requeue singly
-                requeue(rec["bucket"], rec["chunk"], exc)
-                return
-            elapsed = time.perf_counter() - rec["t_start"]
-            for bi, ti in enumerate(rec["chunk"]):
-                nr = rec["nres_b"][bi]
-                results[ti] = (coords[bi, :nr], confs[bi, :nr])
-                self.counters.record(nr)
-                if self.verbose:
-                    # per-target time = batch wall-clock / batch size; under
-                    # pipelining it spans dispatch -> fetch (queue wait included)
-                    log_target(f"target[{ti}]", rec["nseqs_b"][bi], nr, rec["bucket"],
-                               elapsed / rec["pad_to"], float(confs[bi, :nr].mean()),
-                               batch_seconds=round(elapsed, 4), batch_size=rec["pad_to"])
+            """Wait for one batch's shards, scatter their results and, in a
+            process group, gather every process's."""
+            local = []
+            for sh in rec["shards"]:
+                exc = sh.get("error")
+                if exc is None:
+                    try:
+                        coords, confs = sh["future"].result()
+                    except Exception as err:  # noqa: BLE001 - failure tolerance: requeue
+                        exc = err
+                if exc is not None:
+                    requeue(rec["bucket"], sh["chunk"], sh["shard"].folder, exc)
+                else:
+                    elapsed = time.perf_counter() - rec["t_start"]
+                    for bi, ti in enumerate(sh["chunk"]):
+                        nr = sh["nres_b"][bi]
+                        results[ti] = (coords[bi, :nr], confs[bi, :nr])
+                        self.counters.record(nr)
+                        if self.verbose:
+                            # per-target time = batch wall-clock / batch size; under
+                            # pipelining it spans dispatch -> fetch (queue wait included)
+                            log_target(f"target[{ti}]", sh["nseqs_b"][bi], nr, rec["bucket"],
+                                       elapsed / batch, float(confs[bi, :nr].mean()),
+                                       batch_seconds=round(elapsed, 4), batch_size=batch)
+                local += [results[ti] for ti in sh["chunk"]]
+            if gather:
+                # the processes' slots are contiguous in rank order
+                for ti, res in zip(rec["chunk"], replicate_result(local)):
+                    results[ti] = res
 
         work = [(bucket, idxs[start:start + batch])
                 for bucket, idxs in groups.items()
@@ -226,11 +316,7 @@ class BatchFolder:
                     if not block:
                         return
                     retire(inflight.pop(0))
-                bucket, chunk = work.pop(0)
-                try:
-                    inflight.append(dispatch(bucket, chunk))
-                except Exception as exc:  # noqa: BLE001 - dispatch failure: requeue singly
-                    requeue(bucket, chunk, exc)
+                inflight.append(dispatch(*work.pop(0)))
             if block:
                 while inflight:
                     retire(inflight.pop(0))

@@ -1,10 +1,12 @@
 """HTTP folding service.
 
-Counterpart of ``dmpfold2_tpu/serve.py``: a threaded HTTP server, one
-process per GPU, for deployment behind a load balancer. Concurrent requests
-are coalesced by a dispatcher thread and folded together per shape bucket
-through the batch engine (``parallel/stream.BatchFolder``); under low load a
-lone request is a batch of one, on the same path. Endpoints:
+Counterpart of ``dmpfold2_tpu/serve.py``: a threaded HTTP server for
+deployment behind a load balancer, on one GPU or, with ``--mesh``, data-
+parallel over several GPUs of one machine (each coalesced batch split over
+them). Concurrent requests are coalesced by a dispatcher thread and folded
+together per shape bucket through the batch engine
+(``parallel/stream.BatchFolder``); under low load a lone request is a batch
+of one, on the same path. Endpoints:
 
   POST /fold?iterations=10&minsteps=100   body: aln (or a3m) text -> PDB text
   POST /fold   (Content-Type: application/json)
@@ -20,7 +22,8 @@ client that stalls mid-body trips the socket read timeout (408) instead of
 holding a handler thread.
 
 Run: ``python -m dmpfold2_tpu_torch.serve --port 8080 --weights params.npz
-[-d cpu]``. The device defaults to ``cuda``; without it the service raises.
+[-d cpu] [--mesh DATA|auto]``. The device defaults to ``cuda``; without it
+the service raises.
 """
 
 from __future__ import annotations
@@ -69,21 +72,23 @@ class FoldService:
     (iterations, minsteps) and hands each group to ``BatchFolder``, so N
     concurrent requests of one bucket cost one batch, not N folds. A finisher
     thread waits for each group's results; at most two groups are in flight.
-    The parameters are uploaded once, by the batch engine's held ``Folder``.
-    A lone request is a batch of one: the single fold is the batched forward
-    at B 1, and the batch engine runs it on a worker thread, so the
-    dispatcher never waits for a fold.
+    The parameters are uploaded once per device, by the batch engine's held
+    ``Folder``s. Every request rides the batched path: a lone request is a
+    batch of one (the single fold is the batched forward at B 1) run on a
+    worker thread, so the dispatcher never waits for a fold. With a ``mesh``
+    (one process; ``parallel.mesh.make_mesh``) each batch splits over the
+    mesh's devices.
     """
 
     def __init__(self, params, precision: str = "bf16", device=None,
                  batch_window_s: float = 0.05, max_batch: int = 8,
                  max_body_bytes: int = 64 * 2 ** 20, read_timeout_s: float = 30.0,
-                 busy_collect_cap_s: float = 30.0):
+                 busy_collect_cap_s: float = 30.0, mesh=None):
         self.max_body_bytes = max_body_bytes
         self.read_timeout_s = read_timeout_s
         self.counters = Counters()
         self.batcher = BatchFolder(params, device=device, precision=precision,
-                                   counters=self.counters)
+                                   counters=self.counters, mesh=mesh)
         self.folder = self.batcher.folder
         self.batch_window_s = batch_window_s
         self.max_batch = max_batch
@@ -125,14 +130,15 @@ class FoldService:
         return self.max_batch
 
     def warmup(self, shapes=((256, 96), (256, 128))) -> None:
-        """Fold each shape and the healthz shape once on the held
-        ``Folder`` (building the kernels on a GPU), then the first shape at
-        every ladder batch size through the batch engine; marks the service
-        ready, so /healthz answers from cache."""
-        self.folder.warmup(shapes=tuple(shapes) + (HEALTH_SHAPE,))
-        if shapes:
-            # the same (nseqs, nres) bucket real traffic hits
-            aln = np.zeros(tuple(shapes[0]), np.uint8)
+        """Fold each shape and the healthz shape once on every device's held
+        ``Folder`` (building the kernels on a GPU), then each shape at every
+        ladder batch size through the batch engine, which every request
+        rides; marks the service ready, so /healthz answers from cache."""
+        shapes = tuple(shapes)
+        for folder in self.batcher.folders:
+            folder.warmup(shapes=shapes + (HEALTH_SHAPE,))
+        for nseqs, nres in shapes:
+            aln = np.zeros((nseqs, nres), np.uint8)
             for bs in self._batch_ladder():
                 self.batcher.batch_size = bs
                 self.batcher.fold_many([Target(alnmat=aln)] * 2, iterations=1, minsteps=1)
@@ -407,11 +413,11 @@ def make_handler(service: FoldService):
 def serve(params, host: str = "0.0.0.0", port: int = 8080, precision: str = "bf16",
           device=None, batch_window_s: float = 0.05, max_batch: int = 8,
           max_body_bytes: int = 64 * 2 ** 20, read_timeout_s: float = 30.0,
-          busy_collect_cap_s: float = 30.0) -> ThreadingHTTPServer:
+          busy_collect_cap_s: float = 30.0, mesh=None) -> ThreadingHTTPServer:
     service = FoldService(params, precision, device, batch_window_s=batch_window_s,
                           max_batch=max_batch, max_body_bytes=max_body_bytes,
                           read_timeout_s=read_timeout_s,
-                          busy_collect_cap_s=busy_collect_cap_s)
+                          busy_collect_cap_s=busy_collect_cap_s, mesh=mesh)
     server = ThreadingHTTPServer((host, port), make_handler(service))
     server.fold_service = service  # for warmup and introspection
     return server
@@ -439,19 +445,25 @@ def main(argv=None):
     ap.add_argument("--warmup", default="256x96,256x128", metavar="NxL,...",
                     help="comma-separated (nseqs x nres) shapes to fold before accepting "
                          "traffic: the deployment's expected bucket mix")
-    ap.add_argument("--mesh", default=None, metavar="DATA[xSEQ]",
-                    help="serve over several GPUs (not yet ported)")
+    ap.add_argument("--mesh", default=None, metavar="DATA[xSEQ]|auto",
+                    help="serve data-parallel over a mesh of this machine's GPUs, e.g. '2'; "
+                         "'auto' = every visible GPU (with -d cpu: CPU replicas); "
+                         "SEQ > 1 is not ported")
     args = ap.parse_args(argv)
+    mesh = device = None
     if args.mesh is not None:
-        raise NotImplementedError("--mesh is not yet ported (multi-GPU): the PyTorch "
-                                  "service runs on one device")
+        from .parallel.mesh import parse_mesh
+
+        mesh = parse_mesh(args.mesh, args.device)
+    else:
+        device = args.device
     warmup_shapes = tuple(tuple(int(v) for v in s.split("x"))
                           for s in args.warmup.split(",") if s)
     server = serve(load_weights(args.weights), args.host, args.port, args.precision,
-                   args.device, batch_window_s=args.batch_window_ms / 1000.0,
+                   device, batch_window_s=args.batch_window_ms / 1000.0,
                    max_batch=args.max_batch, max_body_bytes=int(args.max_body_mb * 2 ** 20),
                    read_timeout_s=args.read_timeout_s,
-                   busy_collect_cap_s=args.busy_collect_cap_s)
+                   busy_collect_cap_s=args.busy_collect_cap_s, mesh=mesh)
 
     # graceful drain on SIGTERM/SIGINT (load balancers send SIGTERM on
     # rollouts): stop taking work, fail queued requests fast, let the groups

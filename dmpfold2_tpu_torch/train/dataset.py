@@ -106,6 +106,8 @@ class DMPDataset:
         self.rng = rng or random.Random()
         self.crop_len = crop_len
         self.max_aln_size = max_aln_size
+        # file loads: a data-parallel rank loads only its own batch slots
+        self.reads = 0
 
     def __len__(self) -> int:
         return len(self.sample_list)
@@ -120,6 +122,7 @@ class DMPDataset:
         rng = rng or self.rng
         members = self.sample_list[idx]
         targid = rng.choice(members) if self.augment else members[0]
+        self.reads += 1
         _, targets = parse_tdb(os.path.join(self.data_dir, "tdb", targid + ".tdb"))
         alnmat = parse_aln_rows(os.path.join(self.data_dir, "aln", targid + ".aln"))
         if self.augment:

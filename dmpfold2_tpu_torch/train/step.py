@@ -4,9 +4,18 @@ Counterpart of ``dmpfold2_tpu/train/step.py`` on its natively batched path
 (``batch_loss_native``, the path the JAX loop takes off-mesh; reference
 train.py:230-374): random recycling depth, refinement differentiated
 through, 50% teacher forcing of the distance-map channel with noised
-ground-truth CAs, Adam, gradient accumulation, a non-finite guard. The JAX
-package's vmapped per-sample path exists for GSPMD sharding and waits for
-multi-GPU training (ROADMAP.md, queue 1).
+ground-truth CAs, Adam, gradient accumulation, a non-finite guard.
+
+Data-parallel training (``train_step(mesh=...)``, one process per device):
+each rank runs this native batch path on its shard of the micro-batch. Its
+loss is its samples' summed losses over the GLOBAL batch size, and the
+gradients and metrics are all-reduced (sum) in one collective; every rank
+then holds the same summed gradients, so every rank takes or skips the same
+steps. Randomness is shard-invariant: sample i of the global batch draws its
+teacher forcing from ``fold_in(seed, i)`` and its dropout rows from masks
+drawn at the global shape. The JAX package's
+vmapped per-sample path (``native_batch=False``) exists for GSPMD sharding
+and is not ported.
 
 With ``precision="bf16"`` the trunk runs in bf16 with every block conv
 through ``kernels/conv_block.py:conv5x5_maxout_diff``: on a CUDA device the
@@ -21,6 +30,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import TrainConfig
 from ..engine.fold import use_full_fp32
@@ -131,20 +141,28 @@ def resolve_remat(params, batch_size: int, l_pad: int, nloops: int, fused: bool)
 
 def batch_loss_native(params, alnmat: torch.Tensor, targets: torch.Tensor, nseqs, nres,
                       draws, *, nloops: int, refine_steps: int = REFINE_STEPS,
-                      dropout_seed: int | None = None, precision: str = "fp32", remat=True):
-    """The batched micro-batch loss: mean over samples, and metrics.
+                      dropout_seed: int | None = None, precision: str = "fp32", remat=True,
+                      slot_offset: int = 0, global_batch: int | None = None):
+    """The batched micro-batch loss: the samples' losses summed over the
+    global batch size (their mean when this is the whole batch), and metrics
+    likewise.
 
     ``alnmat`` (B, N, L) and ``targets`` (B, L, 5, 3) on the device; ``nseqs``
     and ``nres`` sequences of ints; ``draws``: per sample (use_tf, noise) as
     :func:`draw_prep` gives. Each sample's prep runs on its own, one after
     another (the (21L)^2 DCA inverse of a whole batch at once would need B
-    times the memory). ``dropout_seed`` None turns dropout off.
+    times the memory). ``dropout_seed`` None turns dropout off. Under data
+    parallelism these B samples are slots ``slot_offset ..`` of a global
+    batch of ``global_batch`` (default B), and the dropout masks are drawn
+    for it.
     """
     x2s, tgts = [], []
     for i, (use_tf, noise) in enumerate(draws):
         x2, tgt = prep_sample(alnmat[i], targets[i], int(nseqs[i]), int(nres[i]), use_tf, noise)
         x2s.append(x2)
         tgts.append(tgt)
+    total = len(draws) if global_batch is None else global_batch
+    shard = None if total == len(draws) else (slot_offset, total)
     rngs = None
     if dropout_seed is not None:
         rngs = {name: fold_in(dropout_seed, k) for k, name in enumerate(("hgru", "init",
@@ -152,14 +170,14 @@ def batch_loss_native(params, alnmat: torch.Tensor, targets: torch.Tensor, nseqs
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     coords, confs = gruresnet.forward_batched(
         params, alnmat, torch.stack(x2s), nseqs, nres, nloops, refine_steps, rngs=rngs,
-        remat=remat, compute_dtype=dtype)
+        remat=remat, compute_dtype=dtype, shard=shard)
     per_sample = [fold_loss(coords[i], confs[i], tgts[i], int(nres[i]))
                   for i in range(len(draws))]
     losses = torch.stack([loss for loss, _ in per_sample])
-    metrics = {k: torch.stack([m[k] for _, m in per_sample]).mean()
+    metrics = {k: torch.stack([m[k] for _, m in per_sample]).sum() / total
                for k in per_sample[0][1]}
     metrics["sample_loss"] = losses.detach()
-    return losses.mean(), metrics
+    return losses.sum() / total, metrics
 
 
 class Optimizer:
@@ -229,7 +247,7 @@ def make_optimizer(params, learning_rate: float = 1e-4, accum_steps: int = 1) ->
 
 def train_step(params, optimizer: Optimizer | None, batch: TrainBatch, seed: int, *,
                nloops: int, refine_steps: int = REFINE_STEPS, train: bool = True,
-               precision: str = "fp32", native_batch: bool = True) -> dict:
+               precision: str = "fp32", native_batch: bool = True, mesh=None) -> dict:
     """One micro-step on ``params``' device; returns metrics as floats.
 
     ``seed`` draws the step's randomness: sample i's teacher forcing from
@@ -239,27 +257,45 @@ def train_step(params, optimizer: Optimizer | None, batch: TrainBatch, seed: int
     step whose gradients are not all finite is skipped (``skipped`` 1): the
     parameters, Adam's moments and the accumulation buffer stay as they
     were, as the reference's GradScaler skips (train.py:213-217, 373-374).
-    ``native_batch=False``, the JAX package's vmapped per-sample path for
-    mesh sharding, is not ported yet. On a CUDA device, widths the kernels
-    cannot run raise ``ValueError`` before the batch is uploaded.
+    On a CUDA device, widths the kernels cannot run raise ``ValueError``
+    before the batch is uploaded.
+
+    ``mesh`` (``parallel.mesh.make_mesh`` in a process group, one device per
+    process): ``batch`` is this rank's shard, global slots ``rank * B ..``
+    of a micro-batch of ``n_data * B``; the metrics but ``sample_loss`` (this
+    shard's) are the global batch's, and the gradients are all-reduced
+    before the finiteness check and the update. A collective: every rank calls
+    it with a shard of the same bucket.
     """
     if not native_batch:
-        raise NotImplementedError("train_step: native_batch=False (the vmapped per-sample "
-                                  "path for multi-device sharding) is not yet ported")
+        raise NotImplementedError(
+            "train_step: native_batch=False (the JAX package's vmapped per-sample path, which "
+            "exists for GSPMD mesh sharding) is not ported: under data parallelism each rank "
+            "runs the native batch path (train_step(mesh=...))")
     device = leaves(params)[0].device
     gruresnet.check_card_widths(params, precision, device, training=True)
     alnmat = torch.from_numpy(np.asarray(batch.alnmat, np.int32)).to(device)
     targets = torch.from_numpy(np.asarray(batch.targets, np.float32)).to(device)
     batch_size, l_pad = alnmat.shape[0], alnmat.shape[2]
-    draws = [draw_prep(fold_in(seed, i), l_pad) for i in range(batch_size)]
+    offset, total = 0, batch_size
+    if mesh is not None:
+        if mesh.n_local != 1:
+            raise ValueError("train_step: data-parallel training runs one process per device "
+                             f"(this mesh has {mesh.n_local} local shards); launch one "
+                             "process per GPU (torchrun, or --coordinator)")
+        offset, total = mesh.first_shard * batch_size, mesh.n_data * batch_size
+    draws = [draw_prep(fold_in(seed, offset + i), l_pad) for i in range(batch_size)]
     fused = precision == "bf16"
     remat = resolve_remat(params, batch_size, l_pad, nloops, fused)
-    kw = dict(nloops=nloops, refine_steps=refine_steps, precision=precision, remat=remat)
+    kw = dict(nloops=nloops, refine_steps=refine_steps, precision=precision, remat=remat,
+              slot_offset=offset, global_batch=total)
 
     if not train:
         with torch.no_grad():
             _, metrics = batch_loss_native(params, alnmat, targets, batch.nseqs, batch.nres,
                                            draws, **kw)
+        if mesh is not None:
+            _all_reduce(metrics)
         return _host(metrics)
 
     loss, metrics = batch_loss_native(params, alnmat, targets, batch.nseqs, batch.nres, draws,
@@ -267,12 +303,33 @@ def train_step(params, optimizer: Optimizer | None, batch: TrainBatch, seed: int
     params_l = leaves(params)
     grads = torch.autograd.grad(loss, params_l, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params_l, grads)]
+    if mesh is not None:
+        grads = _all_reduce(metrics, grads)
+    # after the all-reduce every rank holds the same bits of the summed
+    # gradients, so every rank reads the same flag and takes or skips the step
     ok = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
     out = _host(metrics)
     out["skipped"] = 0.0 if ok else 1.0
     out["updated"] = bool(ok and optimizer.update(grads))
     out["remat"] = remat
     return out
+
+
+def _all_reduce(metrics: dict, grads: list = ()) -> list:
+    """Sum the gradients and the scalar metrics (each this shard's share of
+    the global mean; ``sample_loss`` stays this shard's) over the process
+    group in one flat all-reduce: the metrics in place, the gradients
+    returned."""
+    names = [k for k in metrics if k != "sample_loss"]
+    tensors = list(grads) + [metrics[k].detach() for k in names]
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat)
+    out, start = [], 0
+    for t in tensors:
+        out.append(flat[start:start + t.numel()].view_as(t))
+        start += t.numel()
+    metrics.update(zip(names, out[len(out) - len(names):]))
+    return out[:len(out) - len(names)]
 
 
 def _host(metrics: dict) -> dict:

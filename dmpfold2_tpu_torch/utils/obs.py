@@ -8,7 +8,8 @@ Counterpart of ``dmpfold2_tpu/utils/obs.py``:
     configuration serves either);
   * ``Counters`` aggregates targets/s and residues/s across a streaming run;
     ``record`` takes a lock, since the serving dispatcher and finisher
-    threads can both reach it;
+    threads can both reach it; ``global_counters`` merges every process's
+    counters in a process group;
   * ``profile`` wraps ``torch.profiler`` and writes a Chrome trace.
 """
 
@@ -101,6 +102,24 @@ class Counters:
             "seconds": round(self.seconds, 3),
             "targets_per_s": round(self.targets_per_s(), 4),
         }
+
+
+def global_counters(counters: Counters) -> Counters:
+    """The whole process group's throughput: each process's (targets,
+    residues, started) gathered and merged with :meth:`Counters.merge`.
+    ``counters`` itself in a single process. A collective: every process
+    calls it, from its main thread."""
+    from ..parallel.mesh import replicate_result, world
+
+    if world()[0] == 1:
+        return counters
+    rows = replicate_result([(counters.targets, counters.residues, counters.started)])
+    merged = []
+    for targets, residues, started in rows:
+        c = Counters(targets=targets, residues=residues)
+        c.started = started
+        merged.append(c)
+    return Counters.merge(merged)
 
 
 @contextmanager

@@ -1,7 +1,7 @@
 """The PyTorch port's HTTP folding service (``dmpfold2_tpu_torch/serve.py``)
 on an in-process CPU server with a toy model: the behaviours of
-tests/test_serve.py (all but the mesh-sharded service, which waits for
-multi-GPU)."""
+tests/test_serve.py (the mesh-sharded service is in
+tests/test_torch_multiprocess.py)."""
 
 import json
 import os
@@ -245,8 +245,9 @@ def test_lone_request_is_a_batch_of_one(monkeypatch):
 
 
 def test_mesh_is_refused():
+    """A mesh with a residue (seq) axis: that sharding is not ported."""
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        serve_mod.main(["--mesh", "4", "-d", "cpu"])
+        serve_mod.main(["--mesh", "4x2", "-d", "cpu"])
 
 
 def test_sigterm_graceful_shutdown(tmp_path):

@@ -189,9 +189,9 @@ def test_failed_batch_requeues_singly(params, fp32_batch, targets, monkeypatch, 
     singles = []
     real_single = BatchFolder._fold_single
 
-    def recording_single(self, target, iterations, minsteps):
-        singles.append((self.folder, target))
-        return real_single(self, target, iterations, minsteps)
+    def recording_single(self, target, iterations, minsteps, folder=None):
+        singles.append((folder or self.folder, target))
+        return real_single(self, target, iterations, minsteps, folder)
 
     monkeypatch.setattr(BatchFolder, "_fold_single", recording_single)
     folder = BatchFolder(params, device="cpu", batch_size=2)
@@ -213,10 +213,10 @@ def test_single_target_failure_gives_none_and_logs(params, targets, monkeypatch,
     bad = 2
     real_single = BatchFolder._fold_single
 
-    def selective_single(self, target, iterations, minsteps):
+    def selective_single(self, target, iterations, minsteps, folder=None):
         if target is targets[bad]:
             raise ValueError("injected single-target failure")
-        return real_single(self, target, iterations, minsteps)
+        return real_single(self, target, iterations, minsteps, folder)
 
     monkeypatch.setattr(stream, "_fold_batch", failing_batch)
     monkeypatch.setattr(BatchFolder, "_fold_single", selective_single)

@@ -340,8 +340,9 @@ def test_service_folds_in_strict(params):
         assert pdb.startswith("REMARK  CONF:") and pdb.rstrip().endswith("END")
     finally:
         service.close()
+    # the parser takes the precision, then refuses the residue-axis mesh
     with pytest.raises(NotImplementedError, match="--mesh"):
-        serve_mod.main(["--precision", "fp32_strict", "--mesh", "2", "-d", "cpu"])
+        serve_mod.main(["--precision", "fp32_strict", "--mesh", "2x2", "-d", "cpu"])
 
 
 # ---------------------------------------------------------------- on the card

@@ -249,9 +249,10 @@ def test_train_step_skips_nonfinite_grads(tree):
 
 def test_vmapped_path_is_not_ported(tree):
     """The JAX package's vmapped per-sample path (native_batch=False) exists
-    for mesh sharding; the port raises until multi-GPU training is ported."""
+    for GSPMD mesh sharding; the port raises: under data parallelism each
+    rank runs the native batch path."""
     params = step.trainable(params_from_jax(tree), "cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="is not ported: under data parallelism"):
         step.train_step(params, step.make_optimizer(params), _toy_batch(), seed=0, nloops=0,
                         native_batch=False)
 
