@@ -82,6 +82,15 @@ Phases, each printing one JSON line:
    model's gradient cosines, the rest of that comparison recorded (see
    ``DDP_STEPS``); both ranks' parameters the same bits; (e)
    an NCCL group of one process: the step the plain step's bits. About 1 min.
+8c. seq    -- residue-axis sharding over ``make_mesh(1, n, devices=["cuda:0"]
+   * n)``: the kernels' slab forms against their plain versions and, joined,
+   the same bits as the square kernel (B 1 and 8, L 256 split 128 + 128 and
+   96 + 96 + 64), and their times; the bf16 fold of PF10963 sharded 48 + 40
+   against unsharded (the 16 block outputs the same bits, the trunk output
+   within 1e-5, launches of the trunk kernels twice; path "fold bf16 seq"),
+   fp32 and fp32_strict at ``-n 0 -m 0``, a seeded L 1024 target in bf16;
+   ``train_step`` on the mesh against the unsharded step (path "train bf16
+   seq"); ``serve`` over the mesh. See ``phase_seq``.
 8b. evaluate -- ``train/evaluate.py`` on eight seeded validation targets in
    two buckets, batch 8, ``-n 10 -m 100``, in bf16 and fp32_strict: every
    target scored, each record equal to ``score.tm_score`` of its fold;
@@ -104,7 +113,9 @@ Then the ``kernels`` line (launches from phase 4: the fp32 fold for vgru,
 rgru and refine, the bf16 fold for the two trunk kernels; from phase 9's
 micro-steps for conv5x5_maxout_diff; ``launches_by_path`` gives each path's
 own count, phase multi's "batch bf16 mesh" and "train bf16 ddp" (both
-ranks) among them, ``batch_shape`` the time and bound at the batch shapes), and last
+ranks) and phase seq's "fold bf16 seq" and "train bf16 seq" among them,
+``batch_shape`` the time and bound at the batch shapes, ``slab`` the slab
+form's at phase seq's shape), and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits nonzero without the last
 line. It imports neither JAX nor the JAX package.
 """
@@ -213,14 +224,16 @@ def device_ms(fn, fragment: str, reps: int, per_call: int = 1) -> float:
     each call launches ``per_call`` of them. Unlike CUDA events around
     back-to-back calls, this leaves out the host time of a wrapper whose
     kernel is shorter than its Python. The profiler can lose activity records
-    (an H100 run once reported 39 of 50 launches), so a profile whose count
-    is not ``reps * per_call`` is taken again, up to three times."""
+    (an H100 run once reported 39 of 50 launches, another 9 of 10 three times
+    running), so a profile whose count is not ``reps * per_call`` is taken
+    again, up to three times; then the mean over the launches the fullest
+    one saw is taken. More launches than expected fail."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    counts = []
+    counts, fullest = [], (0, 0.0)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -235,6 +248,10 @@ def device_ms(fn, fragment: str, reps: int, per_call: int = 1) -> float:
         if count == reps * per_call:
             return total / reps / 1e3
         counts.append(count)
+        if count < reps * per_call:
+            fullest = max(fullest, (count, total))
+    if fullest[0] and max(counts) < reps * per_call:
+        return fullest[1] / fullest[0] * per_call / 1e3
     raise AssertionError(f"profiler saw {counts} launches of {fragment}, expected "
                          f"{reps * per_call}")
 
@@ -955,9 +972,9 @@ def _trunk_outputs(store: list):
 
     orig = gruresnet.trunk_apply_bf16
 
-    def recording(packed, x, mask):
-        out = orig(packed, x, mask)
-        store.append((tuple(x.shape), out.clone(), mask.clone()))
+    def recording(packed, xs, masks, *args):
+        out = orig(packed, xs, masks, *args)
+        store.append((tuple(xs[0].shape), out.clone(), masks[0].clone()))  # one shard
         return out
 
     gruresnet.trunk_apply_bf16 = recording
@@ -2263,6 +2280,413 @@ def phase_multi(params) -> dict:
     return {"batch bf16 mesh": launches_b, "train bf16 ddp": ddp["launches"]}
 
 
+# ---------------------------------------------------------------- seq
+#
+# Phase seq: residue-axis sharding on the one card, over make_mesh(1, n,
+# devices=["cuda:0"] * n): n seq shards on one device run the same code as n
+# cards, each cross-device copy a copy on the card. (a) the kernels' slab
+# forms (conv stats and argmax, the GEMM) at B 1 and B 8, L 256 split 128 +
+# 128 and 96 + 96 + 64: each shard against its plain version (one bf16 ulp,
+# stats rtol 1e-4), and the shards joined against the square kernel: the
+# same bits in the rows, the index and the partials; then each slab form's
+# time at B 1 on the first of two shards (a 132 x 256 slab). (b) the bf16
+# fold of PF10963 at -n 10 -m 100 sharded 48 + 40 against unsharded: the 16
+# block outputs of the first pass the same bits (the shards' partials are
+# summed in the unsharded tile order) and that pass's trunk output within
+# 1e-5 of each channel's scale, the fold the same bits or else its
+# confidences at -n 0 -m 0 within phase cpu's bf16 bound (recycling and
+# refinement amplify the head's rounding-level differences; the -n 10 -m 100
+# differences are recorded), wall times of 3 folds each (after a warm-up),
+# and launches of the two trunk kernels twice the unsharded fold's (path
+# "fold bf16 seq"). (c) fp32 and fp32_strict at -n 0 -m 0: confidences 5e-4,
+# CA 1e-2 A. (d) one seeded 64 x 1024 target in bf16 at -n 1 -m 10 as (b),
+# timed likewise. (e) train_step on "pf" (nloops 0, refine
+# 0) on the 1 x 2 mesh against the unsharded step: the fp32 losses within
+# 1e-5 relative and, on the "spread" model, the gradient cosine >= 0.9999 per
+# top-level group; bf16 loss within 1e-3 relative, its cosines recorded (path
+# "train bf16 seq"). (f) serve over the 1 x 2 mesh: 4 concurrent PF10963
+# requests, each a whole PDB.
+SEQ_KERNEL_L = 256
+SEQ_SPLITS = (2, 3)
+SEQ_KERNEL_BATCHES = (1, 8)
+SEQ_LONG = (64, 1024)          # (d): one seeded (nseqs, nres) target
+SEQ_LONG_RUN = (1, 10)         # its (iterations, minsteps)
+SEQ_WALL_REPEATS = 3
+SEQ_TRUNK_REL = 1e-5           # (b), (d): the trunk output, its blocks the same bits
+SEQ_FP32_TOLS = {"max_abs_conf": 5e-4, "max_abs_ca": 1e-2}
+SEQ_SERVE_REQUESTS = 4
+SEQ_TRAIN_STEPS = (("fp32", 0, 0, "spread"), ("fp32", 0, 0, "random"), ("bf16", 0, 0, "random"))
+SEQ_TRAIN_LOSS_RTOL = {"fp32": 1e-5, "bf16": 1e-3}
+
+
+def _seq_mesh(n: int):
+    from dmpfold2_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(1, n, devices=["cuda:0"] * n)
+
+
+def _seq_kernels(params, rng) -> tuple[list, dict]:
+    """Phase seq (a): the slab forms against their plain versions and the
+    square kernel; returns the cases and each slab form's timing row."""
+    import torch.nn.functional as F
+
+    from dmpfold2_tpu_torch.kernels import conv_block
+    from dmpfold2_tpu_torch.parallel.sharding import SeqShards, exchange_halo, scatter_rows
+
+    dev = torch.device("cuda")
+    trunk = params["trunk"]
+    conv_w, conv_b = conv_block.pack_conv5x5_weights(trunk["blocks"][0]["maxout"]["w"].to(dev),
+                                                     trunk["blocks"][0]["maxout"]["b"].to(dev))
+    k_pad = conv_block.gemm_k_pad(GEMM_K_IN)
+    gemm_w, gemm_b = conv_block.pack_gemm_weights(trunk["input"]["w"].to(dev),
+                                                  trunk["input"]["b"].to(dev), k_pad)
+    l_pad = SEQ_KERNEL_L
+
+    def inputs(batch, c_in, width):
+        nres = [l_pad - 6] if batch == 1 else [l_pad - 23 * i for i in range(batch)]
+        valid = (torch.arange(l_pad)[None, :] < torch.tensor(nres)[:, None]).float()
+        x = torch.zeros((batch, l_pad, l_pad, width))
+        x[..., :c_in] = (torch.from_numpy(rng.normal(size=(batch, l_pad, l_pad, c_in))
+                                          .astype(np.float32))
+                         * valid[:, :, None, None] * valid[:, None, :, None])
+        return x.to(torch.bfloat16).to(dev), torch.tensor(nres, dtype=torch.int32, device=dev)
+
+    def ulps(got, want):
+        d = (got.float() - want.float()).abs()
+        return (d / (BF16_ULP * want.float().abs().clamp(min=1.0))).max().item(), d.max().item()
+
+    def stats_rel(partial, plain_partial):
+        s, r = partial.sum(dim=1), plain_partial.sum(dim=1)
+        return ((s - r).abs() / r.abs().clamp(min=1e-30)).max().item()
+
+    cases = []
+    for batch in SEQ_KERNEL_BATCHES:
+        xc, nr = inputs(batch, CWIDTH, CWIDTH)
+        xg, _ = inputs(batch, GEMM_K_IN, k_pad)
+        sq_conv = conv_block.conv5x5_maxout_partials(xc, conv_w, conv_b, nr)
+        sq_arg = conv_block.conv5x5_maxout_argmax(xc, conv_w, conv_b)
+        sq_gemm = conv_block.gemm_maxout_partials(xg, gemm_w, gemm_b, nr)
+        for n in SEQ_SPLITS:
+            seq = SeqShards.split([dev] * n, l_pad)
+            r0s = seq.bounds[:-1]
+            slabs = exchange_halo(scatter_rows(seq, xc), conv_block.HALO)
+            rows = [r.contiguous() for r in scatter_rows(seq, xg)]
+            tag = f"B={batch} L={l_pad} split {[r1 - r0 for r0, r1 in zip(seq.bounds, seq.bounds[1:])]}"
+            for kind in ("conv5x5_maxout", "conv5x5_maxout_argmax", "gemm_maxout"):
+                worst_ulp, worst_abs, worst_rel, idx_agree = 0.0, 0.0, 0.0, 1.0
+                got = []
+                for k, r0 in enumerate(r0s):
+                    if kind == "conv5x5_maxout":
+                        out = conv_block.conv5x5_maxout_partials(slabs[k], conv_w, conv_b, nr, r0,
+                                                                 slab=True)
+                        ref = conv_block.conv5x5_maxout_partials_plain(slabs[k], conv_w, conv_b,
+                                                                       nr, r0, slab=True)
+                        worst_rel = max(worst_rel, stats_rel(out[1], ref[1]))
+                    elif kind == "gemm_maxout":
+                        out = conv_block.gemm_maxout_partials(rows[k], gemm_w, gemm_b, nr, r0)
+                        ref = conv_block.gemm_maxout_partials_plain(rows[k], gemm_w, gemm_b,
+                                                                    nr, r0)
+                        worst_rel = max(worst_rel, stats_rel(out[1], ref[1]))
+                    else:
+                        out = conv_block.conv5x5_maxout_argmax(slabs[k], conv_w, conv_b,
+                                                               slab=True)
+                        ref = conv_block.conv5x5_maxout_argmax_plain(slabs[k], conv_w, conv_b,
+                                                                     slab=True)
+                        idx_agree = min(idx_agree,
+                                        float((out[1] == ref[1]).float().mean().item()))
+                    u, a = ulps(out[0], ref[0])
+                    worst_ulp, worst_abs = max(worst_ulp, u), max(worst_abs, a)
+                    got.append(out)
+                joined = [torch.cat([g[i] for g in got], dim=1) for i in range(2)]
+                square = {"conv5x5_maxout": sq_conv, "gemm_maxout": sq_gemm,
+                          "conv5x5_maxout_argmax": sq_arg}[kind]
+                same = bool(torch.equal(joined[0], square[0]) and torch.equal(joined[1], square[1]))
+                row = {"kernel": kind, "case": tag, "max_err_in_bf16_ulps": worst_ulp,
+                       "max_abs_err": worst_abs, "same_bits_as_square": same,
+                       "ok": same and worst_ulp <= 1.0}
+                if kind == "conv5x5_maxout_argmax":
+                    row["index_agrees_with_plain"] = idx_agree
+                else:
+                    row.update(stats_max_rel_err=worst_rel, stats_rtol=STATS_RTOL)
+                    row["ok"] = row["ok"] and worst_rel <= STATS_RTOL
+                cases.append(row)
+        del xc, xg, sq_conv, sq_arg, sq_gemm, slabs, rows
+    torch.cuda.synchronize()
+
+    # timing: B 1, the first of two shards (rows 0-127 of L 256, a 132 x 256 slab)
+    xc, nr = inputs(1, CWIDTH, CWIDTH)
+    xg, _ = inputs(1, GEMM_K_IN, k_pad)
+    seq = SeqShards.split([dev] * 2, l_pad)
+    slab = exchange_halo(scatter_rows(seq, xc), conv_block.HALO)[0].contiguous()
+    rows_g = scatter_rows(seq, xg)[0].contiguous()
+    n_rows = seq.bounds[1]
+    npix = n_rows * l_pad
+    timing = {}
+    for kind, name, fn, plain, x in (
+            ("conv5x5_maxout", "conv5x5_maxout_kernel",
+             lambda: conv_block.conv5x5_maxout_partials(slab, conv_w, conv_b, nr, slab=True),
+             lambda: conv_block.conv5x5_maxout_partials_plain(slab, conv_w, conv_b, nr,
+                                                              slab=True),
+             slab),
+            ("conv5x5_maxout_diff", "conv5x5_maxout_argmax_kernel",
+             lambda: conv_block.conv5x5_maxout_argmax(slab, conv_w, conv_b, slab=True),
+             lambda: conv_block.conv5x5_maxout_argmax_plain(slab, conv_w, conv_b, slab=True),
+             slab),
+            ("gemm_maxout", "gemm_maxout_kernel",
+             lambda: conv_block.gemm_maxout_partials(rows_g, gemm_w, gemm_b, nr),
+             lambda: conv_block.gemm_maxout_partials_plain(rows_g, gemm_w, gemm_b, nr),
+             rows_g)):
+        ms = device_ms(fn, name, reps=50)
+        plain_ms = time_ms(plain, reps=5)
+        if kind == "gemm_maxout":
+            c_out = gemm_b.shape[0]
+            flops = 2.0 * npix * GEMM_K_IN * c_out
+            nbytes = (2 * (x.numel() + gemm_w.numel() + npix * c_out // 3)
+                      + 4 * (c_out + 1 + 2 * c_out // 3 * -(-npix // 128)))
+            x2d, w_lib = x.view(npix, k_pad), gemm_w.T
+            library_ms = time_ms(lambda: torch.matmul(x2d, w_lib), reps=50)
+            library = (f"torch.matmul bf16 (cuBLAS): ({npix}, {k_pad}) x ({k_pad}, {c_out}) "
+                       "only, without bias, maxout or statistics")
+        else:
+            c_out = conv_b.shape[0]
+            flops = 2.0 * npix * conv_w.numel()
+            out_bytes = npix * c_out // 4 * (3 if kind == "conv5x5_maxout_diff" else 2)
+            tiles = -(-n_rows // conv_block.CONV_TILE[0]) * -(-l_pad // conv_block.CONV_TILE[1])
+            stats = 0 if kind == "conv5x5_maxout_diff" else 4 * 2 * c_out // 4 * tiles
+            nbytes = 2 * (x.numel() + conv_w.numel()) + out_bytes + 4 * (c_out + 1) + stats
+            x_nchw = x.permute(0, 3, 1, 2)
+            w_lib = conv_block.unpack_conv5x5_weights(conv_w).contiguous(
+                memory_format=torch.channels_last)
+            library_ms = time_ms(lambda: F.conv2d(x_nchw, w_lib, padding=(0, 2)), reps=50)
+            library = ("F.conv2d on the channels-last bf16 slab, padding (0, 2) (cuDNN): the "
+                       "5x5 conv to 512 channels only, without bias, maxout, statistics or index")
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16_TENSOR)
+        timing[kind] = {"shape": f"B 1, slab {tuple(x.shape[1:3])} of L {l_pad} (rows 0-"
+                                 f"{n_rows - 1} of a 2-way split)",
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                        "library_ms": library_ms, "library": library,
+                        "tflops": flops / (ms * 1e-3) / 1e12}
+    return cases, timing
+
+
+@contextlib.contextmanager
+def _seq_trunk_record(store: dict, first_blocks: int):
+    """Record the bf16 trunk's block outputs (the first ``first_blocks``
+    calls of the block tail) and each pass's trunk output, sharded or not."""
+    from dmpfold2_tpu_torch.models import gruresnet, trunk
+
+    store.update(blocks=[], outputs=[])
+    tail, apply = trunk._fused_tail, gruresnet.trunk_apply_bf16
+
+    def rec_tail(*args):
+        out = tail(*args)
+        if len(store["blocks"]) < first_blocks:
+            store["blocks"].append(out)
+        return out
+
+    def rec_apply(*args, **kw):
+        out = apply(*args, **kw)
+        store["outputs"].append(out)
+        return out
+
+    trunk._fused_tail, gruresnet.trunk_apply_bf16 = rec_tail, rec_apply
+    try:
+        yield
+    finally:
+        trunk._fused_tail, gruresnet.trunk_apply_bf16 = tail, apply
+
+
+def _seq_fold_compare(params, alnmat, iterations: int, minsteps: int, repeats: int) -> dict:
+    """Phase seq (b) / (d): the bf16 fold of ``alnmat`` on a 1 x 2 mesh
+    against the unsharded one; returns the row, its checks and the sharded
+    fold's launch counts."""
+    from dmpfold2_tpu_torch.engine.buckets import bucket_shape
+    from dmpfold2_tpu_torch.engine.fold import Folder
+    from dmpfold2_tpu_torch.parallel.sharding import row_splits
+
+    plain = Folder(params, device="cuda", precision="bf16")
+    sharded = Folder(params, mesh=_seq_mesh(2), precision="bf16")
+    split = row_splits(bucket_shape(*alnmat.shape)[1], 2)
+    walls = {"unsharded": [], "seq": []}
+    rec = {}
+    for name, folder in (("unsharded", plain), ("seq", sharded)):
+        folder.fold(alnmat, iterations=iterations, minsteps=minsteps)  # warm-up
+        store: dict = {}
+        _reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _seq_trunk_record(store, BLOCKS * (2 if name == "seq" else 1)):
+            coords, confs = folder.fold(alnmat, iterations=iterations, minsteps=minsteps)
+        walls[name].append(time.perf_counter() - t0)
+        rec[name] = dict(store, coords=coords, confs=confs, launches=_read_counters())
+        for _ in range(repeats - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            folder.fold(alnmat, iterations=iterations, minsteps=minsteps)
+            walls[name].append(time.perf_counter() - t0)
+    u, s = rec["unsharded"], rec["seq"]
+    blocks_differ = []  # (block, max abs difference) where the joined shards part
+    for i in range(BLOCKS):
+        joined = torch.cat([s["blocks"][2 * i], s["blocks"][2 * i + 1]], dim=1)
+        if not torch.equal(joined, u["blocks"][i]):
+            blocks_differ.append(
+                [i, float((joined.float() - u["blocks"][i].float()).abs().max())])
+    out_u, out_s = u["outputs"][0], s["outputs"][0]
+    valid = out_u[..., 0] != 0
+    trunk_rel = {label: float((out_s[..., ch] - out_u[..., ch]).abs()[valid].max()
+                              / out_u[..., ch].abs()[valid].max())
+                 for ch, label in ((0, "dmap"), (1, "conf"))}
+    want = {k: (2 * v if k in ("conv5x5_maxout", "gemm_maxout") else v)
+            for k, v in u["launches"].items()}
+    # recycling and refinement amplify the head's rounding-level differences
+    # (its GEMM's rows differ): unless the folds are the same bits, the
+    # confidences are held at -n 0 -m 0, as phase multi (b) holds them
+    same_fold = bool(np.array_equal(s["coords"], u["coords"])
+                     and np.array_equal(s["confs"], u["confs"]))
+    conf_n0 = None
+    if not same_fold:
+        conf_n0 = float(np.abs(sharded.fold(alnmat, iterations=0, minsteps=0)[1]
+                               - plain.fold(alnmat, iterations=0, minsteps=0)[1]).max())
+    checks = {"blocks same bits": not blocks_differ,
+              "trunk output within 1e-5 of scale": all(v <= SEQ_TRUNK_REL
+                                                       for v in trunk_rel.values()),
+              "fold same bits" if same_fold else "conf at -n 0 -m 0 within bf16 bound":
+              same_fold or conf_n0 <= CONF_BF16_TOL,
+              "launches: trunk kernels twice": s["launches"] == want,
+              **{f"whole: {k}": v for k, v in _fold_checks(s["coords"], s["confs"],
+                                                           alnmat).items()}}
+    row = {"shape": list(alnmat.shape), "split": list(split), "iterations": iterations,
+           "minsteps": minsteps, "blocks_same_bits": not blocks_differ,
+           "blocks_differ": blocks_differ, "trunk_rel_diff": trunk_rel,
+           "trunk_rel_tol": SEQ_TRUNK_REL, "fold_same_bits": same_fold,
+           "max_abs_conf_n0_m0": conf_n0, "conf_n0_m0_tol": CONF_BF16_TOL,
+           "max_abs_conf": float(np.abs(s["confs"] - u["confs"]).max()),
+           "max_abs_ca": float(np.abs(s["coords"][:, 1] - u["coords"][:, 1]).max()),
+           "wall_s": walls, "wall_s_median": {k: float(np.median(v)) for k, v in walls.items()},
+           "wall_s_range": {k: [float(min(v)), float(max(v))] for k, v in walls.items()},
+           "launches_unsharded": u["launches"], "launches_seq": s["launches"], "checks": checks}
+    del plain, sharded, rec
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_seq(params) -> dict:
+    """Phase seq (a)-(f); returns the kernels' slab timing rows and the
+    launch counts of its two paths."""
+    import threading
+    import urllib.request
+
+    from dmpfold2_tpu_torch.engine.fold import Folder
+    from dmpfold2_tpu_torch.serve import serve
+    from dmpfold2_tpu_torch.utils.aln import parse_aln
+
+    t_phase = time.perf_counter()
+    walls, checks = {}, {}
+    t0 = time.perf_counter()
+    cases, timing = _seq_kernels(params, np.random.default_rng(13))
+    walls["kernels_s"] = time.perf_counter() - t0
+    checks.update({f"(a) {c['kernel']} {c['case']}": c["ok"] for c in cases})
+
+    alnmat = parse_aln(EXAMPLE_ALN)
+    t0 = time.perf_counter()
+    fold_b = _seq_fold_compare(params, alnmat, ITERATIONS, MINSTEPS, SEQ_WALL_REPEATS)
+    walls["fold_bf16_s"] = time.perf_counter() - t0
+    checks.update({f"(b) {k}": v for k, v in fold_b["checks"].items()})
+
+    fp32 = {}
+    for precision in ("fp32", "fp32_strict"):
+        plain = Folder(params, device="cuda", precision=precision)
+        sharded = Folder(params, mesh=_seq_mesh(2), precision=precision)
+        cp, fp = plain.fold(alnmat, iterations=0, minsteps=0)
+        cs, fs = sharded.fold(alnmat, iterations=0, minsteps=0)
+        fp32[precision] = {"max_abs_conf": float(np.abs(fs - fp).max()),
+                           "max_abs_ca": float(np.abs(cs[:, 1] - cp[:, 1]).max())}
+        for k, tol in SEQ_FP32_TOLS.items():
+            checks[f"(c) {precision} {k}"] = fp32[precision][k] <= tol
+        del plain, sharded
+
+    rng = np.random.default_rng(17)
+    long_aln = rng.integers(0, 21, SEQ_LONG).astype(np.uint8)
+    t0 = time.perf_counter()
+    fold_d = _seq_fold_compare(params, long_aln, *SEQ_LONG_RUN, repeats=SEQ_WALL_REPEATS)
+    walls["fold_long_s"] = time.perf_counter() - t0
+    checks.update({f"(d) {k}": v for k, v in fold_d["checks"].items()})
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as data_dir:
+        _write_train_data(data_dir, np.random.default_rng(1))
+        batch = _load_batch(data_dir, "pf")
+    want = _ddp_steps(params, batch, "cuda", None, SEQ_TRAIN_STEPS)
+    got = _ddp_steps(params, batch, "cuda", _seq_mesh(2), SEQ_TRAIN_STEPS)
+    train_rows, train_launches = [], None
+    for g, w in zip(got, want):
+        tag = f"{g['model']} {g['precision']}"
+        rel = abs(g["metrics"]["loss"] - w["metrics"]["loss"]) / abs(w["metrics"]["loss"])
+        cos = {k: _cosine(g["grads"][k], w["grads"][k]) for k in w["grads"]}
+        train_rows.append({"case": tag, "loss_seq": g["metrics"]["loss"],
+                           "loss_unsharded": w["metrics"]["loss"], "loss_rel_diff": rel,
+                           "grad_cosine": cos, "wall_s": {"seq": g["wall_s"],
+                                                          "unsharded": w["wall_s"]},
+                           "launches_seq": g["launches"], "launches_unsharded": w["launches"]})
+        checks[f"(e) {tag} loss"] = rel <= SEQ_TRAIN_LOSS_RTOL[g["precision"]]
+        if (g["model"], g["precision"]) == ("spread", "fp32"):
+            checks.update({f"(e) {tag} cosine {k}": c >= DDP_GRAD_COS for k, c in cos.items()})
+        if g["precision"] == "bf16":
+            train_launches = g["launches"]
+            checks["(e) bf16 argmax launches twice"] = (
+                g["launches"]["conv5x5_maxout_diff"] == 2 * w["launches"]["conv5x5_maxout_diff"] > 0)
+    walls["train_s"] = time.perf_counter() - t0
+
+    server = serve(params, host="127.0.0.1", port=0, precision="bf16", max_batch=BATCH_SIZE,
+                   mesh=_seq_mesh(2))
+    service = server.fold_service
+    service.warmup(shapes=((N_PAD, L_PAD),))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = (f"http://127.0.0.1:{server.server_address[1]}/fold?iterations={ITERATIONS}"
+           f"&minsteps={MINSTEPS}")
+    body = _aln_text(alnmat).encode()
+    out = [None] * SEQ_SERVE_REQUESTS
+
+    def client(i):
+        try:
+            req = urllib.request.Request(url, data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                out[i] = (resp.status, resp.read().decode())
+        except Exception as exc:  # noqa: BLE001 - reported in the checks
+            out[i] = (None, repr(exc))
+
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(SEQ_SERVE_REQUESTS)]
+    t0 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=900)
+    walls["serve_s"] = time.perf_counter() - t0
+    checks["(f) all 200, 406 ATOM lines"] = all(
+        r is not None and r[0] == 200
+        and sum(line.startswith("ATOM") for line in r[1].splitlines()) == 406 for r in out)
+    server.shutdown()
+    service.close()
+    server.server_close()
+    thread.join(timeout=60)
+    service.batcher.close()
+    walls["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "seq", "mesh": "1 x n on cuda:0", "kernel_cases": cases,
+          "slab_timing": timing, "fold_bf16": {k: v for k, v in fold_b.items() if k != "checks"},
+          "fold_fp32_n0_m0": fp32, "fold_long_bf16": {k: v for k, v in fold_d.items()
+                                                      if k != "checks"},
+          "train": train_rows, "serve": {"requests": SEQ_SERVE_REQUESTS,
+                                         "errors": [r[1][:200] for r in out
+                                                    if r is None or r[0] != 200]},
+          "walls_s": walls, "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"seq checks failed: {failed}")
+    return {"slab": timing, "paths": {"fold bf16 seq": fold_b["launches_seq"],
+                                      "train bf16 seq": train_launches}}
+
+
 # kernel-name fragments -> category, first match wins
 PROFILE_CATEGORIES = (
     ("vgru", ("vgru_kernel",)), ("rgru", ("rgru",)), ("refine", ("refine_kernel",)),
@@ -2364,14 +2788,15 @@ def phase_cpu(params) -> None:
 
 @contextlib.contextmanager
 def _capture_trunk_input(store: list):
-    """Record (packed trunk, input, mask) of every bf16 trunk pass the port runs."""
+    """Record the arguments (packed trunks, input rows, mask rows, nres) of
+    every bf16 trunk pass the port runs on one shard."""
     from dmpfold2_tpu_torch.models import gruresnet
 
     orig = gruresnet.trunk_apply_bf16
 
-    def recording(packed, x, mask):
-        store.append((packed, x.clone(), mask.clone()))
-        return orig(packed, x, mask)
+    def recording(packed, xs, masks, nres, *args):
+        store.append((packed, [x.clone() for x in xs], [m.clone() for m in masks], nres.clone()))
+        return orig(packed, xs, masks, nres, *args)
 
     gruresnet.trunk_apply_bf16 = recording
     try:
@@ -2390,12 +2815,11 @@ def phase_trunk(capture) -> None:
 
     from dmpfold2_tpu_torch.models import trunk
 
-    packed, x, mask = capture
     reps = 5
-    pass_ms = time_ms(lambda: trunk.trunk_apply_bf16(packed, x, mask), reps=20)
+    pass_ms = time_ms(lambda: trunk.trunk_apply_bf16(*capture), reps=20)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            trunk.trunk_apply_bf16(packed, x, mask)
+            trunk.trunk_apply_bf16(*capture)
         torch.cuda.synchronize()
     parts = {"conv5x5_maxout": 0.0, "gemm_maxout": 0.0, "plain": 0.0}
     launches = {"conv5x5_maxout": 0, "gemm_maxout": 0, "plain": 0}
@@ -2409,7 +2833,7 @@ def phase_trunk(capture) -> None:
         parts[part] += us / 1e3 / reps
         launches[part] += evt.count // reps
     busy = sum(parts.values())
-    emit({"phase": "trunk", "precision": "bf16", "shape": list(x.shape),
+    emit({"phase": "trunk", "precision": "bf16", "shape": list(capture[1][0].shape),
           "pass_wall_ms": pass_ms, "pass_device_ms": busy, "device_ms_by_part": parts,
           "launches_per_pass": launches,
           "share_of_device": {k: v / busy for k, v in parts.items()},
@@ -2438,7 +2862,7 @@ def phase_cpu_bf16(params):
     with random weights the predicted CA trace collapses, and MDS amplifies
     bf16-scale rounding into coordinate noise (tests/test_quality_gate.py:
     16-21); the CPU tests bound the bf16 fold's structure by TM-score instead.
-    Returns the card's (packed trunk, input, mask) of that pass."""
+    Returns the card's trunk arguments of that pass (one shard)."""
     from dmpfold2_tpu_torch import aln_to_coords
     from dmpfold2_tpu_torch.config import FoldConfig
     from dmpfold2_tpu_torch.models import trunk
@@ -2452,9 +2876,10 @@ def phase_cpu_bf16(params):
         _, f_gpu = aln_to_coords(EXAMPLE_ALN, device="cuda", **kw)
     if len(store) != 1:
         raise AssertionError(f"expected one bf16 trunk pass at -n 0, saw {len(store)}")
-    packed, x, mask = store[0]
-    out_gpu = trunk.trunk_apply_bf16(packed, x, mask).cpu()
-    out_cpu = trunk.trunk_apply_bf16(trunk.pack_bf16(params["trunk"]), x.cpu(), mask.cpu())
+    _, (x,), (mask,), nres = store[0]
+    out_gpu = trunk.trunk_apply_bf16(*store[0]).cpu()
+    out_cpu = trunk.trunk_apply_bf16([trunk.pack_bf16(params["trunk"])], [x.cpu()], [mask.cpu()],
+                                     nres.cpu())
     valid = mask.cpu()[..., 0] > 0
     d = (out_gpu - out_cpu).abs()
     row = {"iterations": 0, "minsteps": 0, "cpu_wall_s": cpu_s,
@@ -2778,7 +3203,7 @@ def _trunk_grads(params, device: str, dtype):
     row = (torch.arange(L_PAD) < NRES).float()
     mask = (row[:, None] * row[None, :])[None, :, :, None].to(device)
     weights = trainable(params["trunk"], device)
-    out = trunk_apply(weights, x, mask, compute_dtype=dtype, remat="save_conv")
+    out = trunk_apply([weights], [x], [mask], compute_dtype=dtype, remat="save_conv")
     grads = torch.autograd.grad((out * cot).sum(), [x] + leaves(weights))
     return torch.cat([g.detach().float().cpu().reshape(-1) for g in grads])
 
@@ -2898,6 +3323,8 @@ def main() -> None:
     paths["fold fp32_strict"], paths["batch fp32_strict"] = strict["fold"], strict["batch"]
     paths["serve bf16"] = phase_serve(params)
     paths.update(phase_multi(params))
+    seq = phase_seq(params)
+    paths.update(seq["paths"])
     with tempfile.TemporaryDirectory() as eval_dir:
         _write_eval_data(eval_dir, np.random.default_rng(3))
         for precision, counts in phase_evaluate(params, eval_dir).items():
@@ -2920,6 +3347,8 @@ def main() -> None:
         row["kernel_ms"] = row["ms"]
         if name in batch_shapes:
             row["batch_shape"] = batch_shapes[name]
+        if name in seq["slab"]:
+            row["slab"] = seq["slab"][name]
     print(info["nvidia_smi"], flush=True)
     emit({"kernels": list(rows.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -9,10 +9,20 @@
 // sum_{dy,dx,ci} x[i+dy-2, j+dx-2, ci] * w[c, dy, dx, ci]) with c = g * 4 + p,
 // x zero outside [0, L)^2; bf16 operands, fp32 accumulation, bf16 output.
 // Stats mode adds the fp32 sum and sum of squares of the pre-rounding maxout
-// over [0, nres)^2, per target and channel; argmax mode adds, per output, the
+// over [0, nres)^2, per target and channel, one partial per work item;
+// argmax mode adds, per output, the
 // int8 slice p that won (the first on a tie), which the backward routes the
 // cotangent by. The two modes share everything up to the last stores, so
 // their outputs are the same bits.
+//
+// Row slabs (residue-axis sharding): the map may be a slab of a larger one.
+// The input then holds H_out + 4 rows (the owned rows and 2 halo rows on each
+// side, zero beyond the map), the output H_out rows ("valid" in rows, "same"
+// in columns), and r0, the global row of output row 0, places the stats
+// mask. A square map is the slab with H_in = H_out = W and r0 = 0. A shard
+// that starts on a multiple of 8 rows has its work items and partials where
+// the square launch has them, so the shards' partials, joined in row order,
+// are the square launch's bits.
 //
 // What bounds it on an H100: operations. An implicit GEMM with M = L^2
 // pixels, K = 25 * 128 = 3200 and N = 512: 25.4 GFLOP at L 88 (26 us at the
@@ -265,7 +275,8 @@ template <bool kArgmax>
 __device__ __forceinline__ void conv5x5_maxout_items(
     const CUtensorMap* tmap_x, const CUtensorMap* tmap_w, const float* __restrict__ bias,
     const int* __restrict__ nres, __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
-    signed char* __restrict__ index, int L, int c_out, int tiles_c, int tiles, int items) {
+    signed char* __restrict__ index, int h_out, int width, int r0, int row_shift, int c_out,
+    int tiles_c, int tiles, int items) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -303,8 +314,8 @@ __device__ __forceinline__ void conv5x5_maxout_items(
       const Item it = decode(item, halves, tiles, tiles_c);
       mbar_wait(patch_empty, pphase ^ 1);
       mbar_expect_tx(patch_full, kPatchBytes);
-      tma_load_4d(patch, tmap_x, 0, it.c0 - 2, it.r0 - 2, it.b, patch_full);
-      tma_load_4d(patch + kPatchHalfBytes, tmap_x, kHalfCin, it.c0 - 2, it.r0 - 2, it.b,
+      tma_load_4d(patch, tmap_x, 0, it.c0 - 2, it.r0 + row_shift, it.b, patch_full);
+      tma_load_4d(patch + kPatchHalfBytes, tmap_x, kHalfCin, it.c0 - 2, it.r0 + row_shift, it.b,
                   patch_full);
       pphase ^= 1;
       for (int s = 0; s < kSteps; ++s) {
@@ -346,9 +357,9 @@ __device__ __forceinline__ void conv5x5_maxout_items(
     prev = -1;
 
     // ---- epilogue from registers
-    const int i = it.r0 + prow;
+    const int i = it.r0 + prow;  // the row in this launch's output
     const int n_lim = kArgmax ? 0 : nres[it.b];
-    const size_t img = (size_t)it.b * L * L;
+    const size_t img = (size_t)it.b * h_out * width;
     const int ct = tid - 128;  // consumer thread 0..255
     // the previous item's copy-out has read the staging and the sums
     asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
@@ -380,7 +391,7 @@ __device__ __forceinline__ void conv5x5_maxout_items(
       out_s[px * kOutLd + grp] = __float2bfloat16(mine_v);
       if constexpr (kArgmax) idx_s[px * kIdxLd + grp] = static_cast<signed char>(mine_w);
       if constexpr (!kArgmax) {
-        const bool counted = i < n_lim && j < n_lim;
+        const bool counted = i < h_out && r0 + i < n_lim && j < n_lim;
         float t = counted ? mine_v : 0.0f, tt = counted ? mine_v * mine_v : 0.0f;
         // lanes of one group: the two rows (xor 1), then the 8 pixel columns
 #pragma unroll
@@ -401,8 +412,8 @@ __device__ __forceinline__ void conv5x5_maxout_items(
     for (int v = ct; v < kTileM * kOutChunks; v += 32 * kConsumerWarps) {
       const int px = v / kOutChunks, part = v % kOutChunks;
       const int pi = it.r0 + px / kTileCols, pj = it.c0 + px % kTileCols;
-      if (pi < L && pj < L)
-        *reinterpret_cast<uint4*>(out + (img + (size_t)pi * L + pj) * c_groups + it.n0 / kPool +
+      if (pi < h_out && pj < width)
+        *reinterpret_cast<uint4*>(out + (img + (size_t)pi * width + pj) * c_groups + it.n0 / kPool +
                                   part * 8) =
             *reinterpret_cast<const uint4*>(out_s + px * kOutLd + part * 8);
     }
@@ -410,8 +421,8 @@ __device__ __forceinline__ void conv5x5_maxout_items(
       for (int v = ct; v < kTileM * kIdxChunks; v += 32 * kConsumerWarps) {
         const int px = v / kIdxChunks, part = v % kIdxChunks;
         const int pi = it.r0 + px / kTileCols, pj = it.c0 + px % kTileCols;
-        if (pi < L && pj < L)
-          *reinterpret_cast<uint4*>(index + (img + (size_t)pi * L + pj) * c_groups +
+        if (pi < h_out && pj < width)
+          *reinterpret_cast<uint4*>(index + (img + (size_t)pi * width + pj) * c_groups +
                                     it.n0 / kPool + part * 16) =
               *reinterpret_cast<const uint4*>(idx_s + px * kIdxLd + part * 16);
       }
@@ -428,18 +439,19 @@ __device__ __forceinline__ void conv5x5_maxout_items(
 __global__ void __launch_bounds__(kThreads, 1) conv5x5_maxout_kernel(
     const __grid_constant__ CUtensorMap tmap_x, const __grid_constant__ CUtensorMap tmap_w,
     const float* __restrict__ bias, const int* __restrict__ nres,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int L, int c_out, int tiles_c,
-    int tiles, int items) {
-  conv5x5_maxout_items<false>(&tmap_x, &tmap_w, bias, nres, out, partial, nullptr, L, c_out,
-                              tiles_c, tiles, items);
+    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int h_out, int width, int r0,
+    int row_shift, int c_out, int tiles_c, int tiles, int items) {
+  conv5x5_maxout_items<false>(&tmap_x, &tmap_w, bias, nres, out, partial, nullptr, h_out, width,
+                              r0, row_shift, c_out, tiles_c, tiles, items);
 }
 
 __global__ void __launch_bounds__(kThreads, 1) conv5x5_maxout_argmax_kernel(
     const __grid_constant__ CUtensorMap tmap_x, const __grid_constant__ CUtensorMap tmap_w,
     const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-    signed char* __restrict__ index, int L, int c_out, int tiles_c, int tiles, int items) {
-  conv5x5_maxout_items<true>(&tmap_x, &tmap_w, bias, nullptr, out, nullptr, index, L, c_out,
-                             tiles_c, tiles, items);
+    signed char* __restrict__ index, int h_out, int width, int r0, int row_shift, int c_out,
+    int tiles_c, int tiles, int items) {
+  conv5x5_maxout_items<true>(&tmap_x, &tmap_w, bias, nullptr, out, nullptr, index, h_out, width,
+                             r0, row_shift, c_out, tiles_c, tiles, items);
 }
 
 // cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda at link time)
@@ -466,16 +478,17 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The two tensor maps: x as (128 ch, L, L, B) in 12 x 20-pixel boxes of 64
-// channels; w as (3200 K, c_out N) in 64 x 256 boxes; both 128-byte swizzled,
-// zeros outside.
-int make_maps(const void* x, const void* w, int batch, int L, int c_out, CUtensorMap* mx,
-              CUtensorMap* mw) {
+// The two tensor maps: x as (128 ch, W, H_in, B) in 12 x 20-pixel boxes of
+// 64 channels; w as (3200 K, c_out N) in 64 x 256 boxes; both 128-byte
+// swizzled, zeros outside.
+int make_maps(const void* x, const void* w, int batch, int h_in, int width, int c_out,
+              CUtensorMap* mx, CUtensorMap* mw) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t xdim[4] = {(cuuint64_t)kCin, (cuuint64_t)L, (cuuint64_t)L, (cuuint64_t)batch};
-  const cuuint64_t xstride[3] = {(cuuint64_t)kCin * 2, (cuuint64_t)L * kCin * 2,
-                                 (cuuint64_t)L * L * kCin * 2};
+  const cuuint64_t xdim[4] = {(cuuint64_t)kCin, (cuuint64_t)width, (cuuint64_t)h_in,
+                              (cuuint64_t)batch};
+  const cuuint64_t xstride[3] = {(cuuint64_t)kCin * 2, (cuuint64_t)width * kCin * 2,
+                                 (cuuint64_t)h_in * width * kCin * 2};
   const cuuint32_t xbox[4] = {kHalfCin, kPatchCols, kPatchRows, 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   CUresult r = encode(mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), xdim,
@@ -515,46 +528,56 @@ int device_sms() {
 }
 
 // The launch shared by both entry points: maps, persistent grid, error code.
+// h_in is h_out (a square map, zero rows around it) or h_out + 4 (a slab
+// with its halo rows).
 template <auto kKernel, typename... Args>
-int launch(const void* x, const void* w, int batch, int L, int c_in, int c_out, void* stream,
-           Args... args) {
-  if (batch <= 0 || L <= 0 || c_in != kCin || c_out <= 0 || c_out % kN != 0)
+int launch(const void* x, const void* w, int batch, int h_in, int h_out, int width, int r0,
+           int c_in, int c_out, void* stream, Args... args) {
+  if (batch <= 0 || h_out <= 0 || width <= 0 || r0 < 0 || (h_in != h_out && h_in != h_out + 4) ||
+      c_in != kCin || c_out <= 0 || c_out % kN != 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap mx, mw;
-  int err = make_maps(x, w, batch, L, c_out, &mx, &mw);
+  int err = make_maps(x, w, batch, h_in, width, c_out, &mx, &mw);
   if (err != 0) return err;
   const int sms = device_sms<kKernel>();
   if (sms < 0) return -sms;
-  const int tiles_r = (L + kTileRows - 1) / kTileRows, tiles_c = (L + kTileCols - 1) / kTileCols;
+  const int tiles_r = (h_out + kTileRows - 1) / kTileRows;
+  const int tiles_c = (width + kTileCols - 1) / kTileCols;
   const int tiles = tiles_r * tiles_c;
   const long long items = (long long)batch * tiles * (c_out / kN);
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = (int)(items < sms ? items : sms);
-  kKernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(mx, mw, args..., L, c_out, tiles_c,
-                                                           tiles, (int)items);
+  // the patch of output row r starts at input row r - 2 + (h_in - h_out) / 2
+  const int row_shift = (h_in - h_out) / 2 - 2;
+  kKernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+      mx, mw, args..., h_out, width, r0, row_shift, c_out, tiles_c, tiles, (int)items);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (batch, L, L, 128) bf16; w: (c_out, 3200) bf16 with row c (torch order
-// g * 4 + p) and column (dy * 5 + dx) * 128 + ci; bias: (c_out,) fp32; nres:
-// (batch,) int32; out: (batch, L, L, c_out / 4) bf16; partial: (batch,
-// tiles, 2, c_out / 4) fp32 with tiles = ceil(L / 8) * ceil(L / 16). c_in
-// must be 128 and c_out a multiple of 256. All pointers 16-byte aligned.
+// x: (batch, h_in, W, 128) bf16, h_in = h_out (a square map) or h_out + 4
+// (a row slab with 2 halo rows on each side); w: (c_out, 3200) bf16 with row
+// c (torch order g * 4 + p) and column (dy * 5 + dx) * 128 + ci; bias:
+// (c_out,) fp32; nres: (batch,) int32; r0: the global row of output row 0
+// (0 for a square map); out: (batch, h_out, W, c_out / 4) bf16; partial:
+// (batch, tiles, 2, c_out / 4) fp32 with tiles = ceil(h_out / 8) *
+// ceil(W / 16), over the pixels with global row and column in [0, nres).
+// c_in must be 128 and c_out a multiple of 256. All pointers 16-byte aligned.
 extern "C" int conv5x5_maxout_stats(const void* x, const void* w, const float* bias,
-                                    const int* nres, void* out, float* partial, int batch, int L,
-                                    int c_in, int c_out, void* stream) {
-  return launch<conv5x5_maxout_kernel>(x, w, batch, L, c_in, c_out, stream, bias, nres,
-                                       static_cast<__nv_bfloat16*>(out), partial);
+                                    const int* nres, void* out, float* partial, int batch,
+                                    int h_in, int h_out, int width, int r0, int c_in, int c_out,
+                                    void* stream) {
+  return launch<conv5x5_maxout_kernel>(x, w, batch, h_in, h_out, width, r0, c_in, c_out, stream,
+                                       bias, nres, static_cast<__nv_bfloat16*>(out), partial);
 }
 
-// Argmax mode: x, w, bias, out as above; index: (batch, L, L, c_out / 4) int8,
-// the slice p in 0..3 whose value out holds (the first on a tie).
+// Argmax mode: x, w, bias, out as above; index: (batch, h_out, W, c_out / 4)
+// int8, the slice p in 0..3 whose value out holds (the first on a tie).
 extern "C" int conv5x5_maxout_argmax(const void* x, const void* w, const float* bias, void* out,
-                                     void* index, int batch, int L, int c_in, int c_out,
-                                     void* stream) {
-  return launch<conv5x5_maxout_argmax_kernel>(x, w, batch, L, c_in, c_out, stream, bias,
-                                              static_cast<__nv_bfloat16*>(out),
+                                     void* index, int batch, int h_in, int h_out, int width,
+                                     int c_in, int c_out, void* stream) {
+  return launch<conv5x5_maxout_argmax_kernel>(x, w, batch, h_in, h_out, width, 0, c_in, c_out,
+                                              stream, bias, static_cast<__nv_bfloat16*>(out),
                                               static_cast<signed char*>(index));
 }

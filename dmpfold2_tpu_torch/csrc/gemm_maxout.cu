@@ -8,6 +8,12 @@
 // the fp32 sum and sum of squares of the pre-rounding maxout over
 // [0, nres)^2, per target and channel.
 //
+// Row slabs (residue-axis sharding): x may hold rows r0 .. r0 + H - 1 of a
+// larger map of width W, the H x W pixels walked as above, and r0 places
+// the stats mask. A square map is H = W, r0 = 0. A slab whose first pixel
+// r0 * W is a multiple of 128 has its tiles and partials where the square
+// launch has them.
+//
 // What bounds it on an H100: both about equally. At PF10963's 88 x 88 with
 // K = 955 (padded once, upstream, to 960) and N = 384 it does 5.7 GFLOP
 // (5.7 us at the 989 TFLOP/s bf16 tensor-core peak) and must read 14.8 MB of
@@ -170,8 +176,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[kAcc], uint64_t desc_a, uint
 __global__ void __launch_bounds__(kThreads, 1) gemm_maxout_kernel(
     const __grid_constant__ CUtensorMap tmap_x, const __grid_constant__ CUtensorMap tmap_w,
     const float* __restrict__ bias, const int* __restrict__ nres,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int L, int k_steps,
-    int c_groups) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int h, int width, int row0,
+    int k_steps, int c_groups) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -184,7 +190,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_maxout_kernel(
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int mt = blockIdx.x, nt = blockIdx.y, b = blockIdx.z;
-  const int npix = L * L, q0 = mt * kTileM;
+  const int npix = h * width, q0 = mt * kTileM;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -250,7 +256,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_maxout_kernel(
 #pragma unroll
   for (int rh = 0; rh < 2; ++rh) {
     const int px = q0 + r0 + 8 * rh;
-    counted[rh] = px < npix && px / L < n_lim && px % L < n_lim;
+    counted[rh] = px < npix && row0 + px / width < n_lim && px % width < n_lim;
   }
   const float* bias_t = bias + nt * kN;
 #pragma unroll
@@ -338,14 +344,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The two tensor maps: x as (k_pad, L^2, B) in 64 x 128 x 1 boxes (zeros past
-// L^2); w as (k_pad, c_out) in 64 x 192 boxes; both 128-byte swizzled.
-int make_maps(const void* x, const void* w, int batch, int L, int k_pad, int c_out,
+// The two tensor maps: x as (k_pad, H W, B) in 64 x 128 x 1 boxes (zeros
+// past H W); w as (k_pad, c_out) in 64 x 192 boxes; both 128-byte swizzled.
+int make_maps(const void* x, const void* w, int batch, long long npix, int k_pad, int c_out,
               CUtensorMap* mx, CUtensorMap* mw) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t xdim[3] = {(cuuint64_t)k_pad, (cuuint64_t)L * L, (cuuint64_t)batch};
-  const cuuint64_t xstride[2] = {(cuuint64_t)k_pad * 2, (cuuint64_t)L * L * k_pad * 2};
+  const cuuint64_t xdim[3] = {(cuuint64_t)k_pad, (cuuint64_t)npix, (cuuint64_t)batch};
+  const cuuint64_t xstride[2] = {(cuuint64_t)k_pad * 2, (cuuint64_t)npix * k_pad * 2};
   const cuuint32_t xbox[3] = {kKChunk, kTileM, 1};
   const cuuint32_t ones[3] = {1, 1, 1};
   CUresult r = encode(mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), xdim,
@@ -382,27 +388,31 @@ int set_up_device() {
 
 }  // namespace
 
-// x: (batch, L, L, k_pad) bf16, channels past the layer's inputs zero; w:
+// x: (batch, H, W, k_pad) bf16, channels past the layer's inputs zero, rows
+// r0 .. r0 + H - 1 of the map (H = W and r0 = 0 for a square map); w:
 // (c_out, k_pad) bf16 packed by conv_block.py:pack_gemm_weights (row p * 64 +
 // g of N tile t is channel (t * 64 + g) * 3 + p); bias: (c_out,) fp32 in the
-// same order; nres: (batch,) int32; out: (batch, L, L, c_out / 3) bf16 in
+// same order; nres: (batch,) int32; out: (batch, H, W, c_out / 3) bf16 in
 // group order; partial: (batch, tiles, 2, c_out / 3) fp32 with tiles =
-// ceil(L^2 / 128). k_pad must be a multiple of 64 and c_out of 192. All
-// pointers 16-byte aligned.
+// ceil(H W / 128), over the pixels with global row and column in [0, nres).
+// k_pad must be a multiple of 64 and c_out of 192. All pointers 16-byte
+// aligned.
 extern "C" int gemm_maxout_stats(const void* x, const void* w, const float* bias,
-                                 const int* nres, void* out, float* partial, int batch, int L,
-                                 int k_pad, int c_out, void* stream) {
-  if (batch <= 0 || L <= 0 || k_pad <= 0 || k_pad % kKChunk != 0 || c_out <= 0 ||
-      c_out % kN != 0 || batch > 65535 || c_out / kN > 65535)
+                                 const int* nres, void* out, float* partial, int batch, int h,
+                                 int width, int r0, int k_pad, int c_out, void* stream) {
+  const long long npix = (long long)h * width;
+  if (batch <= 0 || h <= 0 || width <= 0 || r0 < 0 || npix > 0x7fffffff - kTileM ||
+      k_pad <= 0 || k_pad % kKChunk != 0 || c_out <= 0 || c_out % kN != 0 || batch > 65535 ||
+      c_out / kN > 65535)
     return (int)cudaErrorInvalidValue;
   int err = set_up_device();
   if (err != 0) return err;
   CUtensorMap mx, mw;
-  err = make_maps(x, w, batch, L, k_pad, c_out, &mx, &mw);
+  err = make_maps(x, w, batch, npix, k_pad, c_out, &mx, &mw);
   if (err != 0) return err;
-  const dim3 grid((L * L + kTileM - 1) / kTileM, c_out / kN, batch);
+  const dim3 grid((unsigned)((npix + kTileM - 1) / kTileM), c_out / kN, batch);
   gemm_maxout_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-      mx, mw, bias, nres, static_cast<__nv_bfloat16*>(out), partial, L, k_pad / kKChunk,
-      c_out / kPool);
+      mx, mw, bias, nres, static_cast<__nv_bfloat16*>(out), partial, h, width, r0,
+      k_pad / kKChunk, c_out / kPool);
   return (int)cudaGetLastError();
 }

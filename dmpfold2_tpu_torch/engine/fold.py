@@ -16,6 +16,11 @@ between them: the device of the tensors does.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``, and
 raise if CUDA is missing.
+
+One long target over several devices: ``Folder(params, mesh=make_mesh(1,
+n_seq))`` splits the pair trunk by rows over the mesh row
+(``parallel/sharding.py``); the row's first device computes the features and
+runs the rest of the network.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from ..features.dca import NUM_DCA_CHANNELS, check_method, dca_or_zero
 from ..features.msa import msa_one_hot, reweight
 from ..kernels import _build
 from ..models import gruresnet
+from ..parallel.sharding import SeqShards
 from ..utils import aln as aln_io
 from ..utils import pdb as pdb_io
 from ..weights import load_npz, load_pt, params_to
@@ -102,29 +108,36 @@ def pair_features(alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor,
 
 def fold_padded_batch(params, alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor,
                       nloops: int, refine_steps: int, adaptive: bool = False,
-                      precision: str = "fp32", dca_method: str = "cholesky"):
+                      precision: str = "fp32", dca_method: str = "cholesky", seq_row=None):
     """(B, n_pad, l_pad) int32 alignments of one bucket on the device,
     per-target sizes (sequences of ints), (B, l_pad, l_pad) dmap channels ->
     (coords (B, l_pad, 5, 3), confidences (B, l_pad), recycles run).
     ``params`` as ``gruresnet.pack_params`` gives them for ``precision``;
     ``dca_method`` as :func:`resolve_dca_method` gives it. ``fp32_strict``
-    keeps the raw eigenvector signs."""
+    keeps the raw eigenvector signs. ``seq_row``: (device, trunk parameters
+    there) for each device of a mesh row whose first device holds
+    ``alnmat`` and ``params``: the trunk split by rows over them."""
     x2 = pair_features(alnmat, nseqs, nres, dmap_channel, dca_method)
+    seq = None
+    if seq_row is not None:
+        seq = SeqShards.split([d for d, _ in seq_row], alnmat.shape[2])
+        params = {**params, "trunk": [t for _, t in seq_row[:seq.n]]}
     return gruresnet.forward_inference(params, alnmat, x2, nseqs, nres, nloops, refine_steps,
                                        adaptive_recycle=adaptive,
                                        adaptive_patience=AUTO_PATIENCE, precision=precision,
-                                       canonical_signs=precision != "fp32_strict")
+                                       canonical_signs=precision != "fp32_strict", seq=seq)
 
 
 def fold_padded(params, alnmat: torch.Tensor, nseqs: int, nres: int,
                 dmap_channel: torch.Tensor, nloops: int, refine_steps: int,
-                adaptive: bool = False, precision: str = "fp32", dca_method: str = "cholesky"):
+                adaptive: bool = False, precision: str = "fp32", dca_method: str = "cholesky",
+                seq_row=None):
     """(n_pad, l_pad) int32 alignment on the device -> (coords (l_pad, 5, 3),
     confidences (l_pad,), recycles run): :func:`fold_padded_batch` at B 1."""
     coords, confs, used = fold_padded_batch(params, alnmat[None], [nseqs], [nres],
                                             dmap_channel[None], nloops, refine_steps,
                                             adaptive=adaptive, precision=precision,
-                                            dca_method=dca_method)
+                                            dca_method=dca_method, seq_row=seq_row)
     return coords[0], confs[0], used
 
 
@@ -156,23 +169,48 @@ def _build_dmap_channel(l_pad: int, nres: int, template_ca: np.ndarray | None) -
 
 
 class Folder:
-    """Holds the parameters on one device and folds single targets.
+    """Holds the parameters on one device, or on each device of one mesh
+    row, and folds single targets.
 
     With ``precision="bf16"`` the trunk weights are packed for the bf16
-    kernels here, once, not per fold. On a CUDA device, widths the kernels
-    cannot run raise ``ValueError`` before any upload. ``dca_method`` is
-    resolved once (:func:`resolve_dca_method`). ``use_buckets=False`` folds
-    at the target's exact (nseqs, nres) instead of its bucket's shape.
+    kernels here, once per device, not per fold. On a CUDA device, widths
+    the kernels cannot run raise ``ValueError`` before any upload.
+    ``dca_method`` is resolved once (:func:`resolve_dca_method`).
+    ``use_buckets=False`` folds at the target's exact (nseqs, nres) instead
+    of its bucket's shape.
+
+    ``mesh`` (``parallel.mesh.make_mesh(1, n_seq)``, in place of ``device``):
+    each fold's pair trunk split by rows over the row's devices (the
+    counterpart of JAX's ``Folder.fold`` under ``jax.set_mesh(mesh)`` and
+    ``pair_sharding("seq")``); its first device holds the features and the
+    rest of the network.
     """
 
     def __init__(self, params, device=None, precision: str = "fp32",
-                 dca_method: str = "auto", use_buckets: bool = True):
+                 dca_method: str = "auto", use_buckets: bool = True, mesh=None):
         check_precision(precision)
         self.dca_method = resolve_dca_method(dca_method, precision)
-        self.device = resolve_device(device)
+        row = (device,)
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("Folder: pass a device or a mesh, not both")
+            if mesh.n_local != 1 or mesh.world_size != 1:
+                raise ValueError(f"Folder: a mesh of one row (1 x n_seq) in one process; got "
+                                 f"{mesh.shape} over {mesh.world_size} processes (BatchFolder "
+                                 "spreads batches over a data axis)")
+            row = mesh.devices[0]
+        self.devices = row = tuple(resolve_device(d) for d in row)
+        self.device = row[0]
         gruresnet.check_card_widths(params, precision, self.device)
         use_full_fp32()
-        self.params = gruresnet.pack_params(params_to(params, self.device), precision)
+        by_device: dict = {}
+        for dev in row:
+            if dev not in by_device:
+                by_device[dev] = gruresnet.pack_params(params_to(params, dev), precision)
+        self.params = by_device[self.device]
+        # (device, its trunk) per device of a seq row; None folds on one device
+        self.seq_row = (tuple((dev, by_device[dev]["trunk"]) for dev in row)
+                        if len(row) > 1 else None)
         self.precision = precision
         self.use_buckets = use_buckets
 
@@ -207,7 +245,8 @@ class Folder:
             coords, confs, used = fold_padded(
                 self.params, torch.from_numpy(aln_p).to(self.device), nseqs, nres,
                 torch.from_numpy(dmap).to(self.device), nloops, max(int(minsteps), 0),
-                adaptive=adaptive, precision=self.precision, dca_method=self.dca_method)
+                adaptive=adaptive, precision=self.precision, dca_method=self.dca_method,
+                seq_row=self.seq_row)
 
         def fetch():
             return coords[:nres].cpu().numpy(), confs[:nres].cpu().numpy(), used

@@ -30,9 +30,9 @@ SIGNATURES = {
     "vgru": {"vgru_final_cols": [_P, _P, _I, _I, _I] + [_P] * 8 + [_P, _P, _P]},
     "rgru": {"rgru_seq": [_P] * 8 + [_I] * 5 + [_P]},
     "refine": {"refine_coords_batched": [_P] * 3 + [_I] * 3 + [_P]},
-    "conv5x5_maxout": {"conv5x5_maxout_stats": [_P] * 6 + [_I] * 4 + [_P],
-                       "conv5x5_maxout_argmax": [_P] * 5 + [_I] * 4 + [_P]},
-    "gemm_maxout": {"gemm_maxout_stats": [_P] * 6 + [_I] * 4 + [_P]},
+    "conv5x5_maxout": {"conv5x5_maxout_stats": [_P] * 6 + [_I] * 7 + [_P],
+                       "conv5x5_maxout_argmax": [_P] * 5 + [_I] * 6 + [_P]},
+    "gemm_maxout": {"gemm_maxout_stats": [_P] * 6 + [_I] * 6 + [_P]},
 }
 
 _lock = threading.Lock()

@@ -21,6 +21,20 @@ of squares of the pre-rounding maxout over [0, nres)^2 per target and
 channel, or, in argmax mode, the int8 index of the winning slice. Maps are
 NHWC, as the JAX package keeps them at this boundary.
 
+Row slabs (residue-axis sharding, ``parallel/sharding.py``): each kernel
+also runs on a slab of a larger map. With ``slab=True``, the conv's
+:func:`conv5x5_maxout_partials` and :func:`conv5x5_maxout_argmax` take the
+owned rows with ``HALO`` rows of each neighbour around them, (B, R + 4, W,
+128), and give R rows, "valid" in rows and "same" in columns;
+:func:`gemm_maxout_partials` takes R rows as they are. A slab's global row
+offset ``r0`` places the stats mask. The ``*_partials`` forms return the
+kernel's per-tile stats unreduced: a shard that starts on a multiple of 16
+rows (of a map whose width is a multiple of 8) has its tiles where the
+square launch has them, so the shards' partials joined in row order and
+summed are the square launch's sums, bit for bit. :class:`Conv5x5MaxoutDiff`
+takes a slab too; its backward gives dx for the whole slab, halo rows
+included.
+
 The conv kernel is a persistent, warp-specialised Hopper kernel: TMA loads
 of the halo patch and of the weights, packed K-major (c_out, 3200), and
 wgmma products over work items of an 8 x 16-pixel patch by 256 output
@@ -38,7 +52,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.norm import scale_shift_from_sums
 from . import _build
 
 KSIZE = 5
@@ -50,6 +63,7 @@ CONV_TILE = (8, 16)   # conv pixels per work item: an 8 x 16 patch
 GEMM_N_TILE = 192     # GEMM output columns per block: 64 whole groups of 3
 GEMM_K_ALIGN = 64     # the GEMM's K step; K is padded to a multiple upstream
 GEMM_TILE_M = 128     # GEMM pixels per block
+HALO = KSIZE // 2     # rows of each neighbour a slab carries on each side
 
 conv_launches = 0  # conv5x5_maxout kernel launches (stats mode) since the last reset
 conv_argmax_launches = 0  # conv5x5_maxout kernel launches in argmax mode
@@ -117,12 +131,20 @@ def unpack_gemm_weights(w_packed: torch.Tensor, b_packed: torch.Tensor):
     return w_packed[inverse], b_packed[inverse]
 
 
-def _masked_sums(y: torch.Tensor, nres: torch.Tensor):
-    """(B, L, L, C) fp32 -> sum and sum of squares over [0, nres)^2, each (B, C)."""
-    idx = torch.arange(y.shape[1], device=y.device)
-    rows = (idx[None, :] < nres[:, None].to(idx.device)).to(y.dtype)       # (B, L)
-    masked = y * (rows[:, :, None, None] * rows[:, None, :, None])
+def _masked_sums(y: torch.Tensor, nres: torch.Tensor, r0: int = 0):
+    """(B, H, W, C) fp32, rows r0 .. r0 + H - 1 of a map -> sum and sum of
+    squares over the pixels whose global row and column lie in [0, nres),
+    each (B, C)."""
+    nr = nres[:, None].to(y.device)
+    rows = ((torch.arange(y.shape[1], device=y.device) + r0)[None, :] < nr).to(y.dtype)
+    cols = (torch.arange(y.shape[2], device=y.device)[None, :] < nr).to(y.dtype)
+    masked = y * (rows[:, :, None, None] * cols[:, None, :, None])
     return masked.sum(dim=(1, 2)), (masked * masked).sum(dim=(1, 2))
+
+
+def _one_tile(s: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
+    """Sums (B, C) as partials of one tile, (B, 1, 2, C)."""
+    return torch.stack([s, ss], dim=1)[:, None]
 
 
 def _maxout_nhwc(y: torch.Tensor, pool: int) -> torch.Tensor:
@@ -131,29 +153,54 @@ def _maxout_nhwc(y: torch.Tensor, pool: int) -> torch.Tensor:
     return y.view(b, c // pool, pool, h, w).amax(dim=2).permute(0, 2, 3, 1)
 
 
-def conv5x5_maxout_stats_plain(x: torch.Tensor, w_packed: torch.Tensor,
-                               b_packed: torch.Tensor, nres: torch.Tensor):
-    """Plain version of :func:`conv5x5_maxout_stats`: ``F.conv2d`` in fp32 on
-    the bf16-rounded operands, bias, maxout, masked sums."""
+def _conv_plain(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
+                slab: bool) -> torch.Tensor:
+    """``F.conv2d`` in fp32 on the bf16-rounded operands, bias: (B, c_out,
+    H_out, W); a slab is "valid" in rows, a square map "same"."""
     w = unpack_conv5x5_weights(w_packed.to(torch.bfloat16).float())
     xf = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
-    y = _maxout_nhwc(F.conv2d(xf, w, b_packed.float(), padding=KSIZE // 2), CONV_POOL)
-    s, ss = _masked_sums(y, nres)
-    return y.to(torch.bfloat16), s, ss
+    return F.conv2d(xf, w, b_packed.float(), padding=(0 if slab else HALO, HALO))
 
 
-def gemm_maxout_stats_plain(x: torch.Tensor, w_packed: torch.Tensor,
-                            b_packed: torch.Tensor, nres: torch.Tensor):
-    """Plain version of :func:`gemm_maxout_stats`: an fp32 matmul on the
-    bf16-rounded operands, bias, maxout, masked sums."""
-    batch, l_rows, l_cols, k_pad = x.shape
+def conv5x5_maxout_partials_plain(x: torch.Tensor, w_packed: torch.Tensor,
+                                  b_packed: torch.Tensor, nres: torch.Tensor, r0: int = 0,
+                                  slab: bool = False):
+    """Plain version of :func:`conv5x5_maxout_partials`: ``F.conv2d`` in fp32
+    on the bf16-rounded operands, bias, maxout, and the masked sums as one
+    tile, (B, 1, 2, C)."""
+    y = _maxout_nhwc(_conv_plain(x, w_packed, b_packed, slab), CONV_POOL)
+    return y.to(torch.bfloat16), _one_tile(*_masked_sums(y, nres, r0))
+
+
+def conv5x5_maxout_stats_plain(x: torch.Tensor, w_packed: torch.Tensor,
+                               b_packed: torch.Tensor, nres: torch.Tensor):
+    """Plain version of :func:`conv5x5_maxout_stats`."""
+    return _reduce_partials(*conv5x5_maxout_partials_plain(x, w_packed, b_packed, nres))
+
+
+def _gemm_plain(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor):
+    """An fp32 matmul on the bf16-rounded operands, bias, maxout: (B, H, W, C)."""
+    batch, rows, cols, k_pad = x.shape
     c_out = w_packed.shape[0]
     w, b = unpack_gemm_weights(w_packed.to(torch.bfloat16), b_packed.float())
     xf = x.to(torch.bfloat16).float().reshape(-1, k_pad)
     y = xf @ w.float().T + b
-    y = y.view(batch, l_rows, l_cols, c_out // GEMM_POOL, GEMM_POOL).amax(dim=4)
-    s, ss = _masked_sums(y, nres)
-    return y.to(torch.bfloat16), s, ss
+    return y.view(batch, rows, cols, c_out // GEMM_POOL, GEMM_POOL).amax(dim=4)
+
+
+def gemm_maxout_partials_plain(x: torch.Tensor, w_packed: torch.Tensor,
+                               b_packed: torch.Tensor, nres: torch.Tensor, r0: int = 0):
+    """Plain version of :func:`gemm_maxout_partials`: an fp32 matmul on the
+    bf16-rounded operands, bias, maxout, and the masked sums as one tile,
+    (B, 1, 2, C)."""
+    y = _gemm_plain(x, w_packed, b_packed)
+    return y.to(torch.bfloat16), _one_tile(*_masked_sums(y, nres, r0))
+
+
+def gemm_maxout_stats_plain(x: torch.Tensor, w_packed: torch.Tensor,
+                            b_packed: torch.Tensor, nres: torch.Tensor):
+    """Plain version of :func:`gemm_maxout_stats`."""
+    return _reduce_partials(*gemm_maxout_partials_plain(x, w_packed, b_packed, nres))
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -164,22 +211,34 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
                          f"{t.device}" + ("" if t.is_contiguous() else " (not contiguous)"))
 
 
-def _launch(lib: str, entry: str, x, w_packed, b_packed, nres, tiles: int, pool: int,
-            dim3: int):
-    """Allocate the output and the partials, launch, reduce the partials per target."""
-    batch, l_rows = x.shape[:2]
+def _launch(lib: str, entry: str, x, w_packed, b_packed, nres, out_rows: int, tiles: int,
+            pool: int, dims: tuple):
+    """Allocate the output (B, out_rows, W, c_out / pool) and the partials
+    (B, tiles, 2, c_out / pool), launch with the int arguments ``dims``
+    after the batch size; returns both, the partials unreduced."""
+    batch, width = x.shape[0], x.shape[2]
     c_out = b_packed.shape[0]
     c_groups = c_out // pool
-    out = torch.empty((batch, l_rows, l_rows, c_groups), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((batch, out_rows, width, c_groups), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((batch, tiles, 2, c_groups), dtype=torch.float32, device=x.device)
     fn = _build.load(lib, entry)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(), nres.data_ptr(),
-                 out.data_ptr(), partial.data_ptr(), batch, l_rows, dim3, c_out, stream)
+                 out.data_ptr(), partial.data_ptr(), batch, *dims, stream)
     torch.cuda.check_error(err)
-    sums = partial.sum(dim=1)  # fixed order: the same bits on every run
+    return out, partial
+
+
+def _reduce_partials(out, partial):
+    """(out, partials) -> (out, sum, sumsq): the partials summed per target
+    in tile order (a fixed order: the same bits on every run)."""
+    sums = partial.sum(dim=1)
     return out, sums[:, 0], sums[:, 1]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def conv_width_error(c_in: int, c_out: int) -> str | None:
@@ -199,9 +258,14 @@ def gemm_width_error(c_out: int) -> str | None:
     return None
 
 
-def _check_conv(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor) -> None:
-    """What the conv kernel takes, in either mode; raises otherwise."""
-    if x.dim() != 4 or x.shape[1] != x.shape[2]:
+def _check_conv(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
+                slab: bool = False) -> int:
+    """What the conv kernel takes, in either mode; raises otherwise. Returns
+    the output's rows."""
+    if slab and (x.dim() != 4 or x.shape[1] <= 2 * HALO):
+        raise ValueError(f"conv5x5_maxout: a slab must be (B, R + {2 * HALO}, W, {CONV_C_IN}) "
+                         f"with R >= 1; got {tuple(x.shape)}")
+    if not slab and (x.dim() != 4 or x.shape[1] != x.shape[2]):
         raise ValueError(f"conv5x5_maxout: x must be (B, L, L, {CONV_C_IN}); got "
                          f"{tuple(x.shape)}")
     c_out = w_packed.shape[0] if w_packed.dim() == 2 else 0
@@ -214,6 +278,22 @@ def _check_conv(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor)
     _check("conv5x5_maxout: w_packed", w_packed, torch.bfloat16,
            (c_out, KSIZE * KSIZE * CONV_C_IN), dev)
     _check("conv5x5_maxout: b_packed", b_packed, torch.float32, (c_out,), dev)
+    return x.shape[1] - 2 * HALO if slab else x.shape[1]
+
+
+def _conv_stats(x, w_packed, b_packed, nres, r0: int, slab: bool):
+    """The stats-mode launch, square or slab: (out, partials)."""
+    global conv_launches
+    out_rows = _check_conv(x, w_packed, b_packed, slab)
+    batch, h_in, width = x.shape[:3]
+    _check("conv5x5_maxout: nres", nres, torch.int32, (batch,), x.device)
+    tiles = _cdiv(out_rows, CONV_TILE[0]) * _cdiv(width, CONV_TILE[1])
+    result = _launch("conv5x5_maxout", "conv5x5_maxout_stats", x, w_packed, b_packed, nres,
+                     out_rows, tiles, CONV_POOL,
+                     (h_in, out_rows, width, r0, CONV_C_IN, w_packed.shape[0]))
+    with _build.count_lock:
+        conv_launches += 1
+    return result
 
 
 def conv5x5_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
@@ -224,36 +304,37 @@ def conv5x5_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torc
     fp32 from :func:`pack_conv5x5_weights`; nres (B,) int32 ->
     (out (B, L, L, c_out / 4) bf16, sum (B, c_out / 4), sumsq (B, c_out / 4)).
     """
-    global conv_launches
+    return _reduce_partials(*conv5x5_maxout_partials(x, w_packed, b_packed, nres))
+
+
+def conv5x5_maxout_partials(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
+                            nres: torch.Tensor, r0: int = 0, slab: bool = False):
+    """:func:`conv5x5_maxout_stats` with the stats per tile, unreduced.
+
+    x (B, L, L, 128) bf16, or with ``slab`` a row slab (B, R + 4, W, 128):
+    global rows r0 - 2 .. r0 + R + 1 (zeros outside the map) -> (out (B, R,
+    W, c_out / 4) bf16, partials (B, tiles, 2, c_out / 4) fp32: per tile of
+    the kernel, in row order, the masked sum and sum of squares over the
+    pixels of global row and column in [0, nres); one tile on the CPU).
+    """
     if x.device.type == "cpu":
-        return conv5x5_maxout_stats_plain(x, w_packed, b_packed, nres)
-    _check_conv(x, w_packed, b_packed)
-    batch, l_rows = x.shape[:2]
-    _check("conv5x5_maxout: nres", nres, torch.int32, (batch,), x.device)
-    tiles = -(-l_rows // CONV_TILE[0]) * -(-l_rows // CONV_TILE[1])
-    result = _launch("conv5x5_maxout", "conv5x5_maxout_stats", x, w_packed, b_packed, nres,
-                     tiles, CONV_POOL, CONV_C_IN)
-    with _build.count_lock:
-        conv_launches += 1
-    return result
+        return conv5x5_maxout_partials_plain(x, w_packed, b_packed, nres, r0, slab)
+    return _conv_stats(x, w_packed, b_packed, nres, r0, slab)
 
 
 def conv5x5_maxout_argmax_plain(x: torch.Tensor, w_packed: torch.Tensor,
-                                b_packed: torch.Tensor):
+                                b_packed: torch.Tensor, slab: bool = False):
     """Plain version of :func:`conv5x5_maxout_argmax`: ``F.conv2d`` in fp32 on
     the bf16-rounded operands, bias, maxout with the index of the winning
     slice (``torch.max`` returns the first on a tie)."""
-    batch, l_rows, l_cols, c_in = x.shape
-    c_out = w_packed.shape[0]
-    w = unpack_conv5x5_weights(w_packed.to(torch.bfloat16).float())
-    xf = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
-    y = F.conv2d(xf, w, b_packed.float(), padding=KSIZE // 2)
-    y = y.permute(0, 2, 3, 1).reshape(batch, l_rows, l_cols, c_out // CONV_POOL, CONV_POOL)
+    y = _conv_plain(x, w_packed, b_packed, slab).permute(0, 2, 3, 1)
+    y = y.reshape(*y.shape[:3], y.shape[3] // CONV_POOL, CONV_POOL)
     val, idx = y.max(dim=-1)
     return val.to(torch.bfloat16), idx.to(torch.int8)
 
 
-def conv5x5_maxout_argmax(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor):
+def conv5x5_maxout_argmax(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
+                          slab: bool = False):
     """Fused 5x5 conv + bias + maxout(4) with the winning slice, NHWC (the
     kernel's argmax mode).
 
@@ -261,22 +342,25 @@ def conv5x5_maxout_argmax(x: torch.Tensor, w_packed: torch.Tensor, b_packed: tor
     fp32 from :func:`pack_conv5x5_weights` -> (out (B, L, L, c_out / 4) bf16,
     index (B, L, L, c_out / 4) int8 in 0..3: ``out[..., g]`` is slice
     ``index[..., g]`` of channels g * 4 .. g * 4 + 3, the first on a tie).
-    ``out`` is the same bits as :func:`conv5x5_maxout_stats` gives.
+    ``out`` is the same bits as :func:`conv5x5_maxout_stats` gives. With
+    ``slab``, x is a row slab (B, R + 4, W, 128) as
+    :func:`conv5x5_maxout_partials` takes it, and both results (B, R, W,
+    c_out / 4).
     """
     global conv_argmax_launches
     if x.device.type == "cpu":
-        return conv5x5_maxout_argmax_plain(x, w_packed, b_packed)
-    _check_conv(x, w_packed, b_packed)
-    batch, l_rows = x.shape[:2]
+        return conv5x5_maxout_argmax_plain(x, w_packed, b_packed, slab)
+    out_rows = _check_conv(x, w_packed, b_packed, slab)
+    batch, h_in, width = x.shape[:3]
     c_out = w_packed.shape[0]
-    shape = (batch, l_rows, l_rows, c_out // CONV_POOL)
+    shape = (batch, out_rows, width, c_out // CONV_POOL)
     out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
     index = torch.empty(shape, dtype=torch.int8, device=x.device)
     fn = _build.load("conv5x5_maxout", "conv5x5_maxout_argmax")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(), out.data_ptr(),
-                 index.data_ptr(), batch, l_rows, CONV_C_IN, c_out, stream)
+                 index.data_ptr(), batch, h_in, out_rows, width, CONV_C_IN, c_out, stream)
     torch.cuda.check_error(err)
     with _build.count_lock:
         conv_argmax_launches += 1
@@ -299,7 +383,10 @@ class Conv5x5MaxoutDiff(torch.autograd.Function):
     ``dmpfold2_tpu/kernels/conv_block.py:conv5x5_maxout_diff`` (:646).
 
     x (B, L, L, 128) NHWC bf16, w (c_out, 128, 5, 5) OIHW fp32, b (c_out,)
-    fp32 -> (B, L, L, c_out / 4) bf16. The forward packs the live weights and
+    fp32 -> (B, L, L, c_out / 4) bf16; with ``slab`` True, x is a row slab
+    (B, R + 4, W, 128) and the output (B, R, W, c_out / 4), and dx covers the
+    whole slab, halo rows included, so autograd carries the halo's share back
+    to the neighbour's rows. The forward packs the live weights and
     runs the kernel's argmax mode, saving the int8 index; the backward
     (``_diff_bwd``, :682-737) routes the cotangent by it:
 
@@ -318,10 +405,11 @@ class Conv5x5MaxoutDiff(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(ctx, x, w, b, slab=False):
         w_packed, b_packed = pack_conv5x5_weights(w.detach(), b.detach())
-        out, index = conv5x5_maxout_argmax(x.detach().contiguous(), w_packed, b_packed)
+        out, index = conv5x5_maxout_argmax(x.detach().contiguous(), w_packed, b_packed, slab)
         ctx.save_for_backward(x, w, b, index)
+        ctx.slab = slab
         return out
 
     @staticmethod
@@ -336,29 +424,31 @@ class Conv5x5MaxoutDiff(torch.autograd.Function):
         cot = scat.reshape(batch, l_rows, l_cols, c_out).to(torch.bfloat16)
         del scat
         dx = dw = None
+        pad_rows = 0 if ctx.slab else HALO  # a slab carries its halo rows
         if ctx.needs_input_grad[0]:
             dx = F.conv_transpose2d(cot.permute(0, 3, 1, 2), w.to(torch.bfloat16),
-                                    padding=KSIZE // 2)
+                                    padding=(pad_rows, HALO))
             dx = dx.permute(0, 2, 3, 1).to(x.dtype).contiguous()
         if ctx.needs_input_grad[1]:
-            pad = KSIZE // 2
-            xp = F.pad(x.to(torch.bfloat16), (0, 0, pad, pad, pad, pad))
+            xp = F.pad(x.to(torch.bfloat16), (0, 0, HALO, HALO, pad_rows, pad_rows))
             cot2 = cot.reshape(-1, c_out)
             taps = [_mm_fp32(xp[:, dy:dy + l_rows, dx_:dx_ + l_cols].reshape(-1, c_in).T, cot2)
                     for dy in range(KSIZE) for dx_ in range(KSIZE)]
             dw = torch.stack(taps).view(KSIZE, KSIZE, c_in, c_out).permute(3, 2, 0, 1)
             dw = dw.to(w.dtype).contiguous()
-        return dx, dw, db.to(b.dtype)
+        return dx, dw, db.to(b.dtype), None
 
 
-def conv5x5_maxout_diff(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def conv5x5_maxout_diff(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        slab: bool = False) -> torch.Tensor:
     """The trunk block conv of bf16 training: :class:`Conv5x5MaxoutDiff` when a
     gradient is wanted; otherwise (no_grad, an eval step) the same kernel
-    launch without keeping the index, so the output is the same bits."""
+    launch without keeping the index, so the output is the same bits.
+    ``slab``: x is a row slab with its halo rows (:class:`Conv5x5MaxoutDiff`)."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
-        return Conv5x5MaxoutDiff.apply(x, w, b)
+        return Conv5x5MaxoutDiff.apply(x, w, b, slab)
     w_packed, b_packed = pack_conv5x5_weights(w, b)
-    return conv5x5_maxout_argmax(x.contiguous(), w_packed, b_packed)[0]
+    return conv5x5_maxout_argmax(x.contiguous(), w_packed, b_packed, slab)[0]
 
 
 def gemm_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
@@ -370,13 +460,31 @@ def gemm_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.T
     fp32 from :func:`pack_gemm_weights`; nres (B,) int32 ->
     (out (B, L, L, c_out / 3) bf16, sum (B, c_out / 3), sumsq (B, c_out / 3)).
     """
-    global gemm_launches
+    if x.dim() != 4 or x.shape[1] != x.shape[2]:
+        raise ValueError(f"gemm_maxout: x must be (B, L, L, k_pad); got {tuple(x.shape)}")
+    return _reduce_partials(*gemm_maxout_partials(x, w_packed, b_packed, nres))
+
+
+def gemm_maxout_partials(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.Tensor,
+                         nres: torch.Tensor, r0: int = 0):
+    """:func:`gemm_maxout_stats` with the stats per tile, unreduced, on the
+    map or on a row slab of it: x (B, R, W, k_pad) bf16, global rows r0 ..
+    r0 + R - 1 -> (out (B, R, W, c_out / 3) bf16, partials (B, tiles, 2,
+    c_out / 3) fp32: per 128-pixel tile, in row order, the masked sum and
+    sum of squares over the pixels of global row and column in [0, nres);
+    one tile on the CPU)."""
     if x.device.type == "cpu":
-        return gemm_maxout_stats_plain(x, w_packed, b_packed, nres)
-    if x.dim() != 4 or x.shape[1] != x.shape[2] or x.shape[3] % GEMM_K_ALIGN:
-        raise ValueError(f"gemm_maxout: x must be (B, L, L, k_pad) with k_pad a multiple of "
+        return gemm_maxout_partials_plain(x, w_packed, b_packed, nres, r0)
+    return _gemm_stats(x, w_packed, b_packed, nres, r0)
+
+
+def _gemm_stats(x, w_packed, b_packed, nres, r0: int):
+    """The GEMM launch, square or slab: (out, partials)."""
+    global gemm_launches
+    if x.dim() != 4 or x.shape[3] % GEMM_K_ALIGN:
+        raise ValueError(f"gemm_maxout: x must be (B, R, W, k_pad) with k_pad a multiple of "
                          f"{GEMM_K_ALIGN}; got {tuple(x.shape)}")
-    batch, l_rows, _, k_pad = x.shape
+    batch, rows, width, k_pad = x.shape
     c_out = w_packed.shape[0]
     msg = gemm_width_error(c_out)
     if msg or batch > 65535:
@@ -386,19 +494,17 @@ def gemm_maxout_stats(x: torch.Tensor, w_packed: torch.Tensor, b_packed: torch.T
     _check("gemm_maxout: w_packed", w_packed, torch.bfloat16, (c_out, k_pad), dev)
     _check("gemm_maxout: b_packed", b_packed, torch.float32, (c_out,), dev)
     _check("gemm_maxout: nres", nres, torch.int32, (batch,), dev)
-    tiles = -(-(l_rows * l_rows) // GEMM_TILE_M)
-    result = _launch("gemm_maxout", "gemm_maxout_stats", x, w_packed, b_packed, nres, tiles,
-                     GEMM_POOL, k_pad)
+    tiles = _cdiv(rows * width, GEMM_TILE_M)
+    result = _launch("gemm_maxout", "gemm_maxout_stats", x, w_packed, b_packed, nres, rows,
+                     tiles, GEMM_POOL, (rows, width, r0, k_pad, c_out))
     with _build.count_lock:
         gemm_launches += 1
     return result
 
 
-def gemm_maxout_norm(x, w_packed, b_packed, gamma, beta, nres, mask):
-    """Counterpart of the JAX ``gemm_maxout_norm`` (:609): the input layer
-    normalized and masked, ``((out * scale + shift) * mask)`` in bf16.
-    ``mask``: (B, L, L, 1) float."""
-    out, s, ss = gemm_maxout_stats(x, w_packed, b_packed, nres)
-    scale, shift = scale_shift_from_sums(s, ss, nres, gamma, beta)
+def normalize(out: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """``((out * scale + shift) * mask)`` in bf16: a maxout map normalized by
+    its per-target (B, C) scale and shift, then masked."""
     y = out.float() * scale[:, None, None, :] + shift[:, None, None, :]
     return (y * mask).to(torch.bfloat16)

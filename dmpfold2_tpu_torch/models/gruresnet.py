@@ -19,6 +19,13 @@ the trunk runs ``trunk.trunk_apply_bf16`` (its convs through
 ``kernels/conv_block.py``) on a bf16 input built once per fold; the rest
 stays fp32.
 
+The trunk runs over row shards (``seq``, a ``parallel.sharding.SeqShards``;
+by default one, the whole map on the leader's device). The leader (the
+row's first device) runs the MSA embedding, MDS, the coordinate GRUs,
+recycling, refinement and completion; each shard builds its rows of the
+pair input from a copy of ``mat1d`` and its rows of the features, runs the
+trunk on them and the head's rows come back to the leader.
+
 Shapes are padded: (n_pad, l_pad) from the alignment, with the true (nseqs,
 nres) given as ints. Outputs at padded positions are garbage and are sliced
 off by the caller.
@@ -38,6 +45,8 @@ from ..utils.aln import NUM_CLASSES as NUM_AA_CLASSES  # 22
 from . import gru
 from .geometry import calpha_to_main_chain, mds_coords, refine_coords
 from ..features.dca import NUM_DCA_CHANNELS
+from ..parallel.sharding import SeqShards, scatter_rows
+from ..weights import params_to
 from .trunk import PackedTrunk, pack_bf16, trunk_apply, trunk_apply_bf16, trunk_params
 
 WIDTH = 512
@@ -68,7 +77,8 @@ def check_card_widths(params, precision: str, device, *, training: bool = False)
     vgru (width), rgru (width / 2, hgru and coord_gru) and, in bf16, the
     trunk's input GEMM and block conv; a training step runs its GRUs as plain
     scans and its block convs through the conv kernel's argmax mode, so only
-    the bf16 block conv limits it.
+    the bf16 block conv limits it. The kernels' row-slab forms (a seq mesh)
+    have the same limits.
     """
     if torch.device(device).type != "cuda":
         return
@@ -128,7 +138,7 @@ def forward(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs: int, nres: in
 def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
                       nloops: int, refine_steps: int, *, adaptive_recycle: bool = False,
                       adaptive_patience: int = 2, precision: str = "fp32",
-                      canonical_signs: bool = True):
+                      canonical_signs: bool = True, seq=None):
     """Run the network on a batch of targets of one bucket, for inference.
 
     The counterpart of the JAX ``forward_batched`` (:247-375) as the batch
@@ -153,6 +163,9 @@ def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nre
       canonical_signs: MDS eigenvector signs made canonical
           (``geometry.mds_coords``); ``False`` keeps the raw signs of
           ``eigh`` (``fp32_strict``).
+      seq: a ``parallel.sharding.SeqShards`` over l_pad whose leader holds
+          ``alnmat``: the trunk split by rows over its devices; then
+          ``params["trunk"]`` is a list, the trunk on each shard's device.
 
     Returns:
       coords (B, l_pad, 5, 3), confidences (B, l_pad), and the recycles run.
@@ -178,16 +191,10 @@ def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nre
     mat1d = rgru.bigru_stack(params["hgru"], hin, nres_t).transpose(0, 1)
     mat1d = mat1d * row_mask[..., None]                                               # (B, L, 512)
 
-    pair = mat1d[:, :, None, :] * mat1d[:, None, :, :]                           # (B, L, L, 512)
-    if precision == "bf16":
-        trunk_pass = _bf16_trunk_pass(params["trunk"], pair, x2, pair_mask)
-    else:
-        resinp_base = torch.cat([pair, x2[..., :-1]], dim=3)                         # 954 channels
-
-        def trunk_pass(dmap_channel):
-            resinp = torch.cat([resinp_base, dmap_channel[..., None]], dim=3)
-            return trunk_apply(params["trunk"], resinp, pair_mask[..., None])
-    del pair
+    trunks = params["trunk"]
+    if seq is None:
+        seq, trunks = SeqShards.split([device], l_pad), [trunks]
+    trunk_pass = _trunk_pass(trunks, mat1d, x2, pair_mask, nres_t, seq, precision == "bf16")
 
     def run_iteration(dmap_channel):
         out = trunk_pass(dmap_channel)
@@ -228,32 +235,69 @@ def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nre
     return coords, torch.sigmoid(best_conf), iterations
 
 
-def _bf16_trunk_pass(packed, pair: torch.Tensor, x2: torch.Tensor, pair_mask: torch.Tensor):
-    """The bf16 engine's trunk input, built once: a (B, L, L, k_pad) bf16 map
-    [pair | DCA 442 | dmap 1 | zeros to k_pad], the width the GEMM kernel
-    reads. Returns a function that writes a pass's (B, L, L) dmap channel
-    into its slot (in place; passes run in stream order) and runs the trunk."""
+def _bf16_input(packed, pair: torch.Tensor, x2: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The bf16 engine's trunk input: a (B, R, L, k_pad) bf16 map [pair |
+    DCA 442 | (the dmap slot) | zeros to k_pad], the width the GEMM kernel
+    reads, and the dmap channel's slot."""
     if not isinstance(packed, PackedTrunk):
         raise TypeError("precision='bf16' needs the trunk packed by "
                         "gruresnet.pack_params(params, 'bf16')")
-    batch, l_pad, _, width = pair.shape
+    width = pair.shape[3]
     slot = width + NUM_DCA_CHANNELS
-    resinp = torch.zeros((batch, l_pad, l_pad, packed.k_pad), dtype=torch.bfloat16,
+    resinp = torch.zeros((*pair.shape[:3], packed.k_pad), dtype=torch.bfloat16,
                          device=pair.device)
     resinp[..., :width] = pair
     resinp[..., width:slot] = x2[..., :-1]
-    mask = pair_mask[..., None]
+    return resinp, slot
 
-    def trunk_pass(dmap_channel):
-        resinp[..., slot] = dmap_channel
-        return trunk_apply_bf16(packed, resinp, mask)
+
+def _shard_rows(seq, mat1d: torch.Tensor, x2: torch.Tensor, pair_mask: torch.Tensor):
+    """Each shard's rows of the trunk input's parts, on its device: (pair
+    rows (B, R_k, L, 512) from a copy of ``mat1d``, x2 rows, mask rows (B,
+    R_k, L, 1)); one shard's are views of the whole map's."""
+    mats = seq.replicate(mat1d.to)
+    pairs = [m[:, seq.rows(k), None, :] * m[:, None, :, :] for k, m in enumerate(mats)]
+    return pairs, scatter_rows(seq, x2), scatter_rows(seq, pair_mask[..., None])
+
+
+def _trunk_pass(trunks: list, mat1d: torch.Tensor, x2: torch.Tensor, pair_mask: torch.Tensor,
+                nres_t: torch.Tensor, seq, bf16_engine: bool):
+    """The trunk input's rows built once on each shard's device; returns a
+    function that scatters a pass's (B, L, L) dmap channel by rows, runs the
+    trunk over the shards and returns its (B, L, L, 2) output on the leader.
+
+    ``bf16_engine``: the bf16 fold's input, (B, R_k, L, k_pad) [pair | DCA
+    442 | the dmap slot | zeros] (:func:`_bf16_input`), each pass's dmap
+    written into its slot in place (passes run in stream order), through
+    ``trunk_apply_bf16``; otherwise ``trunk_apply`` on the 955 channels,
+    with the keywords the function is given."""
+    pairs, x2s, masks = _shard_rows(seq, mat1d, x2, pair_mask)
+    if bf16_engine:
+        inputs = [_bf16_input(t, p, x) for t, p, x in zip(trunks, pairs, x2s)]
+        del pairs, x2s
+        resinps = [r for r, _ in inputs]
+        slot = inputs[0][1]
+
+        def trunk_pass(dmap_channel):
+            for resinp, rows in zip(resinps, scatter_rows(seq, dmap_channel)):
+                resinp[..., slot] = rows
+            return trunk_apply_bf16(trunks, resinps, masks, nres_t, seq)
+
+        return trunk_pass
+    bases = [torch.cat([p, x[..., :-1]], dim=3) for p, x in zip(pairs, x2s)]   # 954 channels
+    del pairs, x2s
+
+    def trunk_pass(dmap_channel, **kw):
+        resinps = [torch.cat([base, rows[..., None]], dim=3)
+                   for base, rows in zip(bases, scatter_rows(seq, dmap_channel))]
+        return trunk_apply(trunks, resinps, masks, seq, **kw)
 
     return trunk_pass
 
 
 def forward_batched(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
                     nloops: int, refine_steps: int, *, rngs: dict | None = None,
-                    remat=False, compute_dtype=torch.float32, shard=None):
+                    remat=False, compute_dtype=torch.float32, shard=None, seq=None):
     """Batched training forward, differentiable: (B, N, L) alignments ->
     ((B, L, 5, 3) coords, (B, L) confidences).
 
@@ -277,6 +321,11 @@ def forward_batched(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
           "save_conv" for the trunk; "recycle" / "recycle_save_conv" also
           checkpoint each trunk-and-coordinate pass (full-body or save_conv
           block remat inside the replay).
+      seq: a ``parallel.sharding.SeqShards`` over L whose leader holds the
+          parameters: the trunk split by rows over its devices, its
+          parameters copied to each shard's device on every forward
+          (differentiably, so the gradients land on the leader's leaves);
+          the rest runs on the leader.
     """
     batch, n_rows, l_pad = alnmat.shape
     device = alnmat.device
@@ -301,18 +350,22 @@ def forward_batched(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
     mat1d = gru.bigru_stack(params["hgru"], hin, nres_t, dropout_rate=GRU_DROPOUT,
                             seed=seed("hgru"), shard=shard)
     mat1d = mat1d.transpose(0, 1) * row_mask[..., None]                               # (B, L, 512)
-    pair = mat1d[:, :, None, :] * mat1d[:, None, :, :]
-    resinp_base = torch.cat([pair, x2[..., :-1]], dim=3)                              # 954 channels
-    del pair
+    trunk_kw = dict(remat=remat, compute_dtype=compute_dtype, dropout_shard=shard)
+    if seq is None:
+        seq = SeqShards.split([device], l_pad)
+    # .to() copies (none on the leader), which autograd differentiates back
+    # to the leader's leaves
+    trunks = seq.replicate(lambda d: params_to(params["trunk"], d))
+    trunk_pass = _trunk_pass(trunks, mat1d, x2, pair_mask, nres_t, seq, False)
+
+    def run_trunk(dmap_channel, trunk_seed):
+        return trunk_pass(dmap_channel, dropout_seed=trunk_seed, **trunk_kw)
 
     def run_iteration(dmap_channel, it_seed):
         trunk_seed = coord_seed = None
         if it_seed is not None:
             trunk_seed, coord_seed = fold_in(it_seed, 0), fold_in(it_seed, 1)
-        resinp = torch.cat([resinp_base, dmap_channel[..., None]], dim=3)
-        out = trunk_apply(params["trunk"], resinp, pair_mask[..., None],
-                          dropout_seed=trunk_seed, remat=remat, compute_dtype=compute_dtype,
-                          dropout_shard=shard)
+        out = run_trunk(dmap_channel, trunk_seed)
         dm = out[..., 0]
         conf = (out[..., 1] * row_mask[:, None, :]).sum(dim=2) / nres_f[:, None]
         mds = torch.stack([mds_coords(dm[b], nres_l[b]) for b in range(batch)])    # (B, L, 8)

@@ -13,6 +13,18 @@ convolutions run in full fp32: the fp32 engine turns TF32 off
 The bf16 engine (:func:`trunk_apply_bf16`, weights from :func:`pack_bf16`)
 runs the input layer and the 16 block convs through the hand-written kernels
 of ``kernels/conv_block.py``.
+
+Both take the map as a list of row blocks over a
+``parallel.sharding.SeqShards`` (residue-axis sharding), each block on its
+shard's device with that device's copy of the weights; the default is one
+shard, the whole map. The input layer and the head are row-local; each
+block exchanges 2 halo rows with its neighbours, runs its conv on the slab
+(the kernels' slab forms in bf16), reduces the norm's statistics over the
+shards and runs its tail row-local (the cSE gate is a per-model constant;
+sSE, the residual and the mask are per pixel). One shard skips the exchange
+and launches the square kernels. The bf16 engine's norm sums every shard's
+kernel partials in the unsharded tile order, so its scale and shift, and
+with them the block outputs, are the unsharded bits.
 """
 
 from __future__ import annotations
@@ -27,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 from ..features.dca import NUM_DCA_CHANNELS
 from ..kernels import conv_block
 from ..ops.dropout import dropout, fold_in
-from ..ops.norm import masked_instance_norm, scale_shift_from_sums
+from ..ops.norm import masked_instance_norm, scale_shift_from_sums, shard_counts
+from ..parallel.sharding import SeqShards, exchange_halo, gather_rows
 
 TRUNK_IN_CHANNELS = NUM_DCA_CHANNELS + 512 + 1  # 955
 DEFAULT_WIDTH = 128
@@ -77,11 +90,6 @@ def trunk_params(gen: torch.Generator, in_channels: int = TRUNK_IN_CHANNELS,
     }
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Same-padded conv, NCHW/OIHW (torch's zero padding of (k-1)//2)."""
-    return F.conv2d(x, w, b, padding=w.shape[-1] // 2)
-
-
 # ---------------------------------------------------------------- bf16 engine
 #
 # Counterpart of the bf16 path of dmpfold2_tpu/models/trunk.py with
@@ -127,16 +135,64 @@ def pack_block_bf16(block) -> dict:
             "sse_w": se["sse_w"].reshape(-1), "sse_b": se["sse_b"]}
 
 
-def resnet_block_fused_norm(p, x: torch.Tensor, mask: torch.Tensor, nres: torch.Tensor):
-    """One residual block, bf16 in and out (JAX ``trunk._resnet_block_fused_norm``).
+def _whole(seq, xs: list) -> SeqShards:
+    """``seq``, or by default one shard: the whole map on its device."""
+    return seq if seq is not None else SeqShards.split([xs[0].device], xs[0].shape[1])
 
-    The InstanceNorm's (scale, shift) come from the conv kernel's sums; sSE
-    reads the raw maxout with scale folded into its weights (rounded to bf16,
-    as JAX does) and shift into its bias; then gate, residual and mask.
-    ``mask`` (B, L, L, 1) bf16.
+
+def _norm_from_partials(partials: list, nres: torch.Tensor, gamma: torch.Tensor,
+                        beta: torch.Tensor, devices) -> list:
+    """(scale, shift) on each shard's device from every shard's kernel
+    partials: joined in row order on the leader (``nres``'s device) and
+    summed there, as the unsharded launch sums its own."""
+    lead = nres.device
+    joined = (partials[0] if len(partials) == 1
+              else torch.cat([p.to(lead) for p in partials], dim=1))
+    sums = joined.sum(dim=1)
+    scale, shift = scale_shift_from_sums(sums[:, 0], sums[:, 1], nres, gamma, beta)
+    return [(scale.to(d), shift.to(d)) for d in devices]
+
+
+def input_layer_bf16(inputs: list, xs: list, masks: list, nres: list, seq: SeqShards) -> list:
+    """The input layer over row shards, bf16 out (JAX ``gemm_maxout_norm``):
+    ``inputs[k]`` (the packed ``w``, ``b``, ``gamma``, ``beta``), ``xs[k]``,
+    ``masks[k]`` (float) and ``nres[k]`` on shard k's device. The GEMM
+    kernel on each shard, the norm's (scale, shift) from every shard's
+    partials, then each shard's rows normalized and masked."""
+    parts = [conv_block.gemm_maxout_partials(x, p["w"], p["b"], n, r0)
+             for p, x, n, r0 in zip(inputs, xs, nres, seq.bounds)]
+    norms = _norm_from_partials([pt for _, pt in parts], nres[0], inputs[0]["gamma"],
+                                inputs[0]["beta"], seq.devices)
+    return [conv_block.normalize(z, sc, sh, m) for (z, _), (sc, sh), m in zip(parts, norms, masks)]
+
+
+def resnet_block_fused_norm(blocks: list, xs: list, masks: list, nres: list,
+                            seq: SeqShards) -> list:
+    """One residual block over row shards, bf16 in and out (JAX
+    ``trunk._resnet_block_fused_norm``): ``blocks[k]``, ``xs[k]``,
+    ``masks[k]`` (bf16) and ``nres[k]`` on shard k's device.
+
+    The halo exchange (several shards), the conv kernel's stats mode on each
+    slab (or on the whole map), the InstanceNorm's (scale, shift) from every
+    shard's partials, then the tail row-local (:func:`_fused_tail`).
     """
-    z, s, ss = conv_block.conv5x5_maxout_stats(x, p["w"], p["b"], nres)
-    scale, shift = scale_shift_from_sums(s, ss, nres, p["gamma"], p["beta"])
+    sharded = seq.n > 1
+    slabs = exchange_halo(xs, conv_block.HALO) if sharded else xs
+    parts = [conv_block.conv5x5_maxout_partials(slab, b["w"], b["b"], n, r0, slab=sharded)
+             for b, slab, n, r0 in zip(blocks, slabs, nres, seq.bounds)]
+    norms = _norm_from_partials([pt for _, pt in parts], nres[0], blocks[0]["gamma"],
+                                blocks[0]["beta"], seq.devices)
+    return [_fused_tail(b, z, x, m, sc, sh)
+            for b, (z, _), x, m, (sc, sh) in zip(blocks, parts, xs, masks, norms)]
+
+
+def _fused_tail(p, z: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor,
+                shift: torch.Tensor) -> torch.Tensor:
+    """The block tail from the conv's bf16 maxout ``z`` and the norm's
+    (scale, shift): sSE reads the raw maxout with scale folded into its
+    weights (rounded to bf16, as JAX does) and shift into its bias; then the
+    cSE gate, residual, mask. Per pixel, so a row slab gives the unsharded
+    rows' bits."""
     w_eff = (scale * p["sse_w"][None, :]).to(torch.bfloat16)             # (B, C)
     s_bias = shift @ p["sse_w"] + p["sse_b"][0]                           # (B,)
     zf = z.float()
@@ -147,23 +203,27 @@ def resnet_block_fused_norm(p, x: torch.Tensor, mask: torch.Tensor, nres: torch.
     return out * mask
 
 
-def trunk_apply_bf16(packed: PackedTrunk, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """(B, L, L, k_pad) bf16 NHWC -> (B, L, L, 2) fp32.
+def trunk_apply_bf16(packed: list, xs: list, masks: list, nres: torch.Tensor,
+                     seq: SeqShards | None = None) -> torch.Tensor:
+    """(B, L, L, k_pad) bf16 NHWC -> (B, L, L, 2) fp32, as row blocks over
+    ``seq``: ``xs[k]`` (B, R_k, L, k_pad), the input channels then zeros up
+    to ``packed[k].k_pad``, and ``masks[k]`` (B, R_k, L, 1) float validity
+    mask on shard k's device, ``packed[k]`` its copy of the weights; ``nres``
+    (B,) int32 on the leader. The output is gathered on the leader.
 
-    ``x``: the input channels, then zeros up to ``packed.k_pad``; ``mask``:
-    (B, L, L, 1) float validity mask.
+    Every shard launches the input GEMM (:func:`input_layer_bf16`) and each
+    block's conv (:func:`resnet_block_fused_norm`, in its slab form when
+    there are several shards); the norms come from every shard's partials
+    and the tails run row-local.
     """
-    # per-target valid length (JAX trunk._mask_nres): every mask here is the
-    # outer product of a right-padded row mask, so column 0 holds nres ones
-    nres = mask[:, :, 0, 0].sum(dim=1).to(torch.int32)
-    inp = packed.input
-    out = conv_block.gemm_maxout_norm(x, inp["w"], inp["b"], inp["gamma"], inp["beta"], nres,
-                                      mask)
-    mask_bf = mask.to(torch.bfloat16)
-    for block in packed.blocks:
-        out = resnet_block_fused_norm(block, out, mask_bf, nres)
-    out = out.float() @ packed.out_w + packed.out_b
-    return out * mask
+    seq = _whole(seq, xs)
+    nres_s = [nres.to(d) for d in seq.devices]
+    outs = input_layer_bf16([p.input for p in packed], xs, masks, nres_s, seq)
+    masks_bf = [m.to(torch.bfloat16) for m in masks]
+    for i in range(len(packed[0].blocks)):
+        outs = resnet_block_fused_norm([p.blocks[i] for p in packed], outs, masks_bf, nres_s, seq)
+    return gather_rows([(out.float() @ p.out_w + p.out_b) * m
+                        for p, out, m in zip(packed, outs, masks)])
 
 
 # ---------------------------------------------------------------- the trunk
@@ -184,12 +244,20 @@ def _maxout_last(y: torch.Tensor, pool: int) -> torch.Tensor:
     return y.reshape(*y.shape[:-1], y.shape[-1] // pool, pool).amax(dim=-1)
 
 
-def _input_layer(p, x: torch.Tensor, mask: torch.Tensor, dtype) -> torch.Tensor:
+def _input_maxout(p, x: torch.Tensor, dtype) -> torch.Tensor:
     """The 1x1 maxout input layer as a GEMM in ``dtype`` (bf16: output and
-    bias in bf16, as the JAX bf16 conv emits), then the masked norm."""
+    bias in bf16, as the JAX bf16 conv emits), before its norm."""
     c_out = p["w"].shape[0]
     y = x.to(dtype) @ p["w"].reshape(c_out, -1).T.to(dtype) + p["b"].to(dtype)
-    return masked_instance_norm(_maxout_last(y, 3), p["gamma"], p["beta"], mask)
+    return _maxout_last(y, 3)
+
+
+def _input_layer(params: list, xs: list, masks: list, counts: list, dtype) -> list:
+    """The input layer (:func:`_input_maxout`) on each shard, then the
+    masked norm over all of them."""
+    ys = [_input_maxout(p["input"], x, dtype) for p, x in zip(params, xs)]
+    return masked_instance_norm(ys, [p["input"]["gamma"] for p in params],
+                                [p["input"]["beta"] for p in params], masks, counts)
 
 
 def scse(se, t: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -206,69 +274,87 @@ def scse(se, t: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     return t * gate.to(t.dtype) + t * s
 
 
-def _block_conv(mx, x: torch.Tensor) -> torch.Tensor:
+def _block_conv(mx, x: torch.Tensor, slab: bool = False) -> torch.Tensor:
     """The block's 5x5 conv + bias + maxout(4): the argmax kernel's Function
-    in bf16, F.conv2d in fp32."""
+    in bf16, F.conv2d in fp32. ``slab``: x is a row slab with its halo rows,
+    and the conv is "valid" in rows."""
     if x.dtype == torch.bfloat16:
-        return conv_block.conv5x5_maxout_diff(x, mx["w"], mx["b"])
-    y = _conv(x.permute(0, 3, 1, 2), mx["w"], mx["b"]).permute(0, 2, 3, 1)
-    return _maxout_last(y, 4)
+        return conv_block.conv5x5_maxout_diff(x, mx["w"], mx["b"], slab)
+    pad = mx["w"].shape[-1] // 2
+    y = F.conv2d(x.permute(0, 3, 1, 2), mx["w"], mx["b"], padding=(0 if slab else pad, pad))
+    return _maxout_last(y.permute(0, 2, 3, 1), 4)
 
 
-def resnet_block(p, x: torch.Tensor, mask: torch.Tensor, *, seed: int | None = None,
-                 remat_tail: bool = False, shard=None) -> torch.Tensor:
+def resnet_block(blocks: list, xs: list, masks: list, counts: list, seq: SeqShards, *,
+                 seed: int | None = None, remat_tail: bool = False, shard=None) -> list:
     """One residual block (reference network.py:85-103, JAX
-    ``trunk.resnet_block``), NHWC in x's dtype.
+    ``trunk.resnet_block``) over row shards, NHWC in x's dtype:
+    ``blocks[k]`` the block's parameters on shard k's device.
 
     ``seed``: dropout 0.2 before the conv, elementwise then channelwise, its
     masks drawn from ``seed`` (so a replay under checkpointing draws the same
-    ones; ``shard`` as ``ops.dropout.keep_mask`` takes it). ``remat_tail``:
-    checkpoint only the norm + scse + residual tail, so
-    the conv output (and, in bf16, the int8 index) is kept for the backward
-    and only the tail is replayed.
+    ones) at the unsharded shape, each shard keeping its rows (``shard`` as
+    ``ops.dropout.keep_mask`` takes it). Then the halo exchange (several
+    shards), the conv on each slab, the norm reduced over the shards and the
+    tail row-local. ``remat_tail``: checkpoint only the norm + scse +
+    residual tail, so the conv output (and, in bf16, the int8 index) is kept
+    for the backward and only the tail is replayed.
     """
-    mx = p["maxout"]
-    out = x
+    l_pad, sharded = seq.bounds[-1], seq.n > 1
+    outs = xs
     if seed is not None:
-        out = dropout(out, BLOCK_DROPOUT, fold_in(seed, 0), shard=shard)
-        out = dropout(out, BLOCK_DROPOUT, fold_in(seed, 1),
-                      shape=(out.shape[0], 1, 1, out.shape[3]), shard=shard)
-    y = _block_conv(mx, out)
+        outs = [dropout(x, BLOCK_DROPOUT, fold_in(seed, 0), shard=shard, rows=(r0, l_pad))
+                for x, r0 in zip(outs, seq.bounds)]
+        outs = [dropout(x, BLOCK_DROPOUT, fold_in(seed, 1),
+                        shape=(x.shape[0], 1, 1, x.shape[3]), shard=shard) for x in outs]
+    slabs = exchange_halo(outs, conv_block.HALO) if sharded else outs
+    ys = [_block_conv(b["maxout"], slab, slab=sharded) for b, slab in zip(blocks, slabs)]
 
-    def tail(y_, x_):
-        t = masked_instance_norm(y_, mx["gamma"], mx["beta"], mask)
-        t = scse(p["scse"], t, mx["beta"])
-        return (t + x_) * mask
+    def tail(ys_, xs_):
+        ts = masked_instance_norm(ys_, [b["maxout"]["gamma"] for b in blocks],
+                                  [b["maxout"]["beta"] for b in blocks], masks, counts)
+        return [(scse(b["scse"], t, b["maxout"]["beta"]) + x) * m
+                for b, t, x, m in zip(blocks, ts, xs_, masks)]
 
     if remat_tail and torch.is_grad_enabled():
-        return checkpoint(tail, y, x, use_reentrant=False)
-    return tail(y, x)
+        return checkpoint(tail, ys, xs, use_reentrant=False)
+    return tail(ys, xs)
 
 
-def trunk_apply(params, x: torch.Tensor, mask: torch.Tensor, *,
+def trunk_apply(params: list, xs: list, masks: list, seq: SeqShards | None = None, *,
                 dropout_seed: int | None = None, remat=False,
                 compute_dtype=torch.float32, dropout_shard=None) -> torch.Tensor:
     """(B, L, L, 955) NHWC -> (B, L, L, 2) fp32: distance-map + confidence
-    channels, differentiable.
+    channels, differentiable, as row blocks over ``seq`` (default one shard):
+    ``xs[k]`` (B, R_k, L, 955) and ``masks[k]`` (B, R_k, L, 1) float validity
+    mask on shard k's device, ``params[k]`` the trunk there. The output is
+    gathered on the leader; gradients reach each shard's parameters and
+    inputs across the copies.
 
-    ``mask``: (B, L, L, 1) float validity mask. ``dropout_seed`` (training):
-    block i's dropout from ``fold_in(dropout_seed, i)``; None is no dropout.
-    ``dropout_shard``: ``(offset, total)`` of this batch in a data-parallel
-    global batch (``ops.dropout.keep_mask``).
+    ``dropout_seed`` (training): block i's dropout from ``fold_in(dropout_seed,
+    i)``; None is no dropout. ``dropout_shard``: ``(offset, total)`` of this
+    batch in a data-parallel global batch (``ops.dropout.keep_mask``).
     ``remat``: False; True checkpoints each whole block (one carry per block
     is kept); ``"save_conv"`` checkpoints each block's tail only (JAX
-    ``trunk_apply``'s tiers, picked by ``train/step.py:resolve_remat``).
+    ``trunk_apply``'s tiers, picked by ``train/step.py:resolve_remat``). A
+    checkpoint spans every shard, since the norm couples them.
     """
-    mask = mask.to(compute_dtype)
-    out = _input_layer(params["input"], x, mask, compute_dtype)  # masked by the norm
-    for i, block in enumerate(params["blocks"]):
-        seed = None if dropout_seed is None else fold_in(dropout_seed, i)
+    seq = _whole(seq, xs)
+    masks = [m.to(compute_dtype) for m in masks]
+    counts = shard_counts(masks)
+    outs = _input_layer(params, xs, masks, counts, compute_dtype)  # masked by the norm
+    for i in range(len(params[0]["blocks"])):
+        blocks = [p["blocks"][i] for p in params]
+        kw = dict(seed=None if dropout_seed is None else fold_in(dropout_seed, i),
+                  shard=dropout_shard)
         if remat is True and torch.is_grad_enabled():
-            out = checkpoint(resnet_block, block, out, mask, seed=seed, shard=dropout_shard,
-                             use_reentrant=False)
+            outs = checkpoint(resnet_block, blocks, outs, masks, counts, seq, **kw,
+                              use_reentrant=False)
         else:
-            out = resnet_block(block, out, mask, seed=seed, remat_tail=remat == "save_conv",
-                               shard=dropout_shard)
-    c_out = params["out_w"].shape[0]
-    out = out.float() @ params["out_w"].reshape(c_out, -1).T + params["out_b"]
-    return out * mask.float()
+            outs = resnet_block(blocks, outs, masks, counts, seq,
+                                remat_tail=remat == "save_conv", **kw)
+    heads = []
+    for p, out, m in zip(params, outs, masks):
+        c_out = p["out_w"].shape[0]
+        heads.append((out.float() @ p["out_w"].reshape(c_out, -1).T + p["out_b"]) * m.float())
+    return gather_rows(heads)

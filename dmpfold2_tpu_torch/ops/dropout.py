@@ -26,24 +26,28 @@ def fold_in(seed: int, data: int) -> int:
 
 
 def keep_mask(seed: int, shape, rate: float, device, shard=None,
-              batch_axis: int = 0) -> torch.Tensor:
+              batch_axis: int = 0, rows=None) -> torch.Tensor:
     """Bool mask of ``shape``, each entry kept with probability 1 - ``rate``;
     with ``shard=(offset, total)`` the rows ``offset ..`` along ``batch_axis``
-    of the mask of the global shape (``total`` rows)."""
+    of the mask of the global shape (``total`` rows), and with
+    ``rows=(offset, total)`` likewise along axis 1 (a map's rows under
+    residue-axis sharding): the slice of the unsharded draw."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    if shard is None:
-        return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
-    offset, total = shard
+    cuts = [(axis, cut) for axis, cut in ((batch_axis, shard), (1, rows)) if cut is not None]
     full = list(shape)
-    full[batch_axis] = total
+    for axis, (_, total) in cuts:
+        full[axis] = total
     keep = torch.rand(full, generator=gen, device=device) < 1.0 - rate
-    return keep.narrow(batch_axis, offset, shape[batch_axis])
+    for axis, (offset, _) in cuts:
+        keep = keep.narrow(axis, offset, shape[axis])
+    return keep
 
 
 def dropout(x: torch.Tensor, rate: float, seed: int, shape=None, shard=None,
-            batch_axis: int = 0) -> torch.Tensor:
+            batch_axis: int = 0, rows=None) -> torch.Tensor:
     """``where(keep, x / (1 - rate), 0)`` in ``x``'s dtype; ``shape`` (default
     ``x.shape``) broadcasts the mask, e.g. (B, 1, 1, C) for channelwise;
-    ``shard`` and ``batch_axis`` as :func:`keep_mask` takes them."""
-    keep = keep_mask(seed, x.shape if shape is None else shape, rate, x.device, shard, batch_axis)
+    ``shard``, ``batch_axis`` and ``rows`` as :func:`keep_mask` takes them."""
+    keep = keep_mask(seed, x.shape if shape is None else shape, rate, x.device, shard, batch_axis,
+                     rows)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

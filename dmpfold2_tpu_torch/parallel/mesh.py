@@ -1,4 +1,5 @@
-"""Device meshes and process groups: data parallelism over targets and samples.
+"""Device meshes and process groups: data parallelism over targets and
+samples, residue-axis (seq) sharding of one target's pair trunk.
 
 Counterpart of ``dmpfold2_tpu/parallel/mesh.py`` in PyTorch's idiom: explicit
 ``torch.device``s, one process per GPU for multi-process runs, and
@@ -10,8 +11,12 @@ Counterpart of ``dmpfold2_tpu/parallel/mesh.py`` in PyTorch's idiom: explicit
     ``r * n_local .. (r + 1) * n_local - 1``. A device may appear more than
     once: replicas on one card (or on the CPU), each shard with its own
     worker thread and stream.
-  * ``seq`` (residue-axis sharding of the pair tensors, JAX
-    ``parallel/sharding.py``) is not ported: ``n_seq > 1`` raises.
+  * ``seq``: each data shard is a row of ``n_seq`` devices, over which one
+    target's pair trunk is split by rows (``parallel/sharding.py``). The row
+    is driven by one process, from one thread per batch in flight, without
+    ``torch.distributed``; its first device (``local_devices``) runs the rest
+    of the network. In a process group each process holds ``n_local x
+    n_seq`` cards, from its local rank times that.
   * :func:`initialize_distributed` joins the process group;
     :func:`owned_batch_indices` says which batch slots this process folds or
     trains on; :func:`replicate_result` all-gathers per-process results
@@ -32,9 +37,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-SEQ_NOT_PORTED = ("residue-axis (seq) sharding of the pair trunk is not ported to multi-GPU "
-                  "(ROADMAP.md, queue 1: 'Residue-axis sharding', parallel/sharding.py, "
-                  "--mesh DATAxSEQ): use a data-only mesh, e.g. --mesh 2")
 # a lost peer fails a collective after this long instead of hanging the group
 TIMEOUT_S = 600.0
 
@@ -48,16 +50,18 @@ def world() -> tuple[int, int]:
 
 def initialize_distributed(coordinator: str | None = None, num_processes: int | None = None,
                            process_id: int | None = None, device=None,
-                           backend: str | None = None) -> torch.device:
+                           backend: str | None = None,
+                           devices_per_process: int = 1) -> torch.device:
     """Join the process group; call once per process before building a mesh.
     Returns this process's device.
 
     With ``coordinator`` ("HOST:PORT"), ``num_processes`` and ``process_id``
     the group meets at ``tcp://HOST:PORT``; without them it reads the
     ``env://`` variables ``torchrun`` sets (``MASTER_ADDR``, ``MASTER_PORT``,
-    ``WORLD_SIZE``, ``RANK``). ``device`` defaults to ``cuda``: the local
-    rank's card (``LOCAL_RANK``, else ``process_id`` modulo the visible
-    cards), made current before the first collective. The backend is
+    ``WORLD_SIZE``, ``RANK``). ``device`` defaults to ``cuda``: the first of
+    the local rank's ``devices_per_process`` cards (card ``LOCAL_RANK x
+    devices_per_process``, ``LOCAL_RANK`` else ``process_id``, modulo the
+    visible cards), made current before the first collective. The backend is
     ``nccl`` for a CUDA device and ``gloo`` for the CPU; ``backend``
     overrides that choice (gloo on a card is how two ranks share one GPU,
     which NCCL refuses). Nothing switches backend after a failure.
@@ -75,7 +79,7 @@ def initialize_distributed(coordinator: str | None = None, num_processes: int | 
             local = int(os.environ["LOCAL_RANK"])
         else:
             local = process_id if process_id is not None else int(os.environ.get("RANK", 0))
-        dev = torch.device("cuda", local % torch.cuda.device_count())
+        dev = torch.device("cuda", local * devices_per_process % torch.cuda.device_count())
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     kwargs = dict(backend=backend or ("nccl" if dev.type == "cuda" else "gloo"),
@@ -108,12 +112,16 @@ class Mesh:
         return self.world_size * self.n_local
 
     @property
+    def n_seq(self) -> int:
+        return len(self.devices[0])
+
+    @property
     def shape(self) -> dict:
-        return {"data": self.n_data, "seq": len(self.devices[0])}
+        return {"data": self.n_data, "seq": self.n_seq}
 
     @property
     def local_devices(self) -> list:
-        """The device of each local data shard, in shard order."""
+        """The first device of each local data shard's row, in shard order."""
         return [row[0] for row in self.devices]
 
     @property
@@ -122,51 +130,65 @@ class Mesh:
         return self.rank * self.n_local
 
 
-def make_mesh(n_data: int | None = None, n_seq: int = 1, devices=None) -> Mesh:
-    """A ``(n_data, n_seq)`` mesh over ``devices`` (this process's; default:
-    every visible CUDA device, or, in a process group, the current one).
+def _local_count(n_data: int | None, world_size: int) -> int:
+    """Data shards per process in a group (one when ``n_data`` is open)."""
+    return 1 if n_data is None else max(n_data // world_size, 1)
 
-    ``n_data`` counts the whole group's data shards (default: every device
-    of every process) and must be a multiple of the group's size.
-    ``n_seq > 1`` raises ``NotImplementedError``; too few devices raise
-    ``ValueError``.
+
+def make_mesh(n_data: int | None = None, n_seq: int = 1, devices=None) -> Mesh:
+    """A ``(n_data, n_seq)`` mesh over ``devices`` (this process's, row after
+    row; default: every visible CUDA device, or, in a process group, the
+    ``n_local x n_seq`` cards from the current one on).
+
+    ``n_data`` counts the whole group's data shards (default: as many rows
+    of ``n_seq`` as every process's devices fill) and must be a multiple of
+    the group's size. A device may repeat: ``["cuda:0"] * 2`` is two seq
+    shards on one card, ``["cpu"] * n`` shards on the CPU. Too few devices
+    raise ``ValueError``.
     """
-    if n_seq > 1:
-        raise NotImplementedError(SEQ_NOT_PORTED)
     world_size, rank = world()
+    if n_seq < 1:
+        raise ValueError(f"mesh seq axis must be >= 1 (got {n_seq})")
     if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if world_size > 1:
-            devices = [torch.device("cuda", torch.cuda.current_device())] \
-                if torch.cuda.is_available() else []
+            first = torch.cuda.current_device() if count else 0
+            devices = [torch.device("cuda", first + i)
+                       for i in range(_local_count(n_data, world_size) * n_seq)
+                       if first + i < count]
         else:
-            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            devices = [torch.device("cuda", i) for i in range(count)]
     devices = [torch.device(d) for d in devices]
-    available = world_size * len(devices)
+    available = world_size * (len(devices) // n_seq)
     if n_data is None:
         n_data = available
-    if n_data < 1 or n_seq < 1 or n_data > available:
+    if n_data < 1 or n_data > available:
         raise ValueError(
-            f"mesh {n_data}x{n_seq} needs {max(n_data, 1) * max(n_seq, 1)} "
-            f"devices but only {available} are available")
+            f"mesh {n_data}x{n_seq} needs {max(n_data, 1) * n_seq} "
+            f"devices but only {world_size * len(devices)} are available")
     if n_data % world_size:
         raise ValueError(f"mesh data axis {n_data} is not a multiple of the {world_size} "
                          f"processes: each process holds the same number of shards")
     n_local = n_data // world_size
-    grid = tuple((d,) for d in devices[:n_local])
+    grid = tuple(tuple(devices[i * n_seq:(i + 1) * n_seq]) for i in range(n_local))
     return Mesh(grid, world_size, rank)
+
+
+def mesh_shape(spec: str) -> tuple[int | None, int]:
+    """``--mesh DATA[xSEQ]|auto`` -> (n_data or None for auto, n_seq)."""
+    if spec == "auto":
+        return None, 1
+    data, _, seq = spec.partition("x")
+    return int(data), int(seq or 1)
 
 
 def parse_mesh(spec: str, device=None) -> Mesh:
     """The CLI's ``--mesh DATA[xSEQ]|auto``. On the CPU (``device`` cpu) the
-    data shards are replicas on the CPU (``auto``: one)."""
-    if spec == "auto":
-        n_data, n_seq = None, 1
-    else:
-        data, _, seq = spec.partition("x")
-        n_data, n_seq = int(data), int(seq or 1)
+    shards are replicas on the CPU (``auto``: one data shard)."""
+    n_data, n_seq = mesh_shape(spec)
     devices = None
     if device is not None and torch.device(device).type == "cpu":
-        devices = [torch.device("cpu")] * (1 if n_data is None else max(n_data // world()[0], 1))
+        devices = [torch.device("cpu")] * (_local_count(n_data, world()[0]) * n_seq)
     return make_mesh(n_data, n_seq, devices)
 
 

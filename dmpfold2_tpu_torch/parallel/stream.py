@@ -24,6 +24,13 @@ on the caller's thread: workers issue no collective), so every process holds
 every result. Counters count local targets; ``global_counters()`` merges
 them across the group.
 
+A mesh whose rows hold ``n_seq > 1`` devices: each data shard's batch folds
+on its row, the pair trunk split by rows over it (``Folder(mesh=...)``,
+``parallel/sharding.py``), and its worker thread sets its stream on every
+device of the row. JAX folds the same batch under ``shard_map``, where the
+seq axis is manual and the pair constraints stay off, so each seq device
+computes the whole batch; the results are the same.
+
 Pipelining: up to ``max_inflight`` batches are in flight. ``dispatch`` pads a
 batch on the host and hands it to a worker thread, which uploads it, folds it
 on its own CUDA stream and fetches the results; ``retire`` waits for that
@@ -96,14 +103,15 @@ def _pad_batch(targets: Sequence[Target], n_pad: int, l_pad: int):
 
 def _fold_batch(folder: Folder, aln_b: np.ndarray, dmap_b: np.ndarray, nseqs, nres,
                 iterations: int, minsteps: int):
-    """One batch on ``folder``'s device, on the calling thread's current
-    stream: upload, fold, fetch -> ((B, l_pad, 5, 3), (B, l_pad)) numpy."""
+    """One batch on ``folder``'s device (or mesh row), on the calling
+    thread's current streams: upload, fold, fetch -> ((B, l_pad, 5, 3),
+    (B, l_pad)) numpy."""
     dev = folder.device
     with torch.inference_mode():
         coords, confs, _ = fold_padded_batch(
             folder.params, torch.from_numpy(aln_b).to(dev), nseqs, nres,
             torch.from_numpy(dmap_b).to(dev), max(int(iterations), 0), max(int(minsteps), 0),
-            precision=folder.precision, dca_method=folder.dca_method)
+            precision=folder.precision, dca_method=folder.dca_method, seq_row=folder.seq_row)
         return coords.cpu().numpy(), confs.cpu().numpy()
 
 
@@ -124,28 +132,30 @@ def _load_linalg(device: torch.device) -> None:
 
 
 class _Shard:
-    """One data shard's resources: the device's held :class:`Folder`,
-    ``depth`` worker threads and, on a CUDA device, as many streams."""
+    """One data shard's resources: the held :class:`Folder` of its device
+    (or mesh row), ``depth`` worker threads and, per worker, a stream on
+    each CUDA device of the row."""
 
     def __init__(self, folder: Folder, depth: int):
         self.folder = folder
         self.executor = ThreadPoolExecutor(depth, thread_name_prefix="dmpfold2-batch")
         self.streams: queue.Queue = queue.Queue()
+        cuda = [d for d in dict.fromkeys(folder.devices) if d.type == "cuda"]
         for _ in range(depth):
-            self.streams.put(torch.cuda.Stream(folder.device)
-                             if folder.device.type == "cuda" else None)
+            self.streams.put([torch.cuda.Stream(d) for d in cuda])
 
     def run(self, *args):
-        """A worker's job: one batch on a free stream of this shard."""
-        stream = self.streams.get()
+        """A worker's job: one batch on a free set of streams of this shard."""
+        streams = self.streams.get()
         try:
             with contextlib.ExitStack() as ctx:
-                if stream is not None:
-                    ctx.enter_context(torch.cuda.device(stream.device))
+                for stream in streams:  # each makes its device current
                     ctx.enter_context(torch.cuda.stream(stream))
+                if streams:  # the fold starts on the row's first device
+                    ctx.enter_context(torch.cuda.device(streams[0].device))
                 return _fold_batch(self.folder, *args)
         finally:
-            self.streams.put(stream)
+            self.streams.put(streams)
 
 
 class BatchFolder:
@@ -156,9 +166,10 @@ class BatchFolder:
     which also folds requeued targets with the same ``precision`` and
     ``dca_method``). ``device`` defaults to ``cuda`` and raises without it;
     with a ``mesh`` (``parallel.mesh.make_mesh``) the mesh's devices are used
-    and ``device`` must be None. ``max_inflight`` batches run at once, each
-    shard of each on its own worker thread and, on a CUDA device, its own
-    stream. Batches are buckets, so the batch engine always pads to them.
+    and ``device`` must be None; a mesh row of several devices splits each
+    fold's pair trunk over them. ``max_inflight`` batches run at once, each
+    shard of each on its own worker thread and, on CUDA devices, its own
+    streams. Batches are buckets, so the batch engine always pads to them.
     """
 
     def __init__(self, params, device=None, batch_size: int = 1, precision: str = "fp32",
@@ -166,14 +177,15 @@ class BatchFolder:
                  max_inflight: int = 2, dca_method: str = "auto", mesh: Mesh | None = None):
         if mesh is not None and device is not None:
             raise ValueError("BatchFolder: pass a device or a mesh, not both")
-        shard_devices = mesh.local_devices if mesh is not None else [device]
+        rows = list(mesh.devices) if mesh is not None else [(device,)]
         folders: dict = {}
-        for dev in shard_devices:
-            if dev not in folders:
-                folders[dev] = Folder(params, device=dev, precision=precision,
-                                      dca_method=dca_method)
+        for row in rows:
+            if row not in folders:
+                folders[row] = Folder(params, precision=precision, dca_method=dca_method,
+                                      **({"mesh": Mesh((row,))} if mesh is not None
+                                         else {"device": device}))
         self.mesh = mesh
-        # one held Folder per distinct device, the first shard's first
+        # one held Folder per distinct row, the first shard's first
         self.folders = list(folders.values())
         self.folder = self.folders[0]
         self.device = self.folder.device
@@ -182,12 +194,14 @@ class BatchFolder:
         self.verbose = verbose
         self.counters = counters if counters is not None else Counters()
         self.max_inflight = max(int(max_inflight), 1)
-        self._shards = [_Shard(folders[dev], self.max_inflight) for dev in shard_devices]
+        self._shards = [_Shard(folders[row], self.max_inflight) for row in rows]
         for folder in self.folders:
             if folder.device.type == "cuda":
                 _load_linalg(folder.device)
-                # the workers' streams read the parameters the current stream uploaded
-                torch.cuda.synchronize(folder.device)
+            for dev in folder.devices:
+                if dev.type == "cuda":
+                    # the workers' streams read the parameters the current stream uploaded
+                    torch.cuda.synchronize(dev)
 
     def close(self) -> None:
         """Stop the worker threads once the batches in flight have finished."""

@@ -22,8 +22,8 @@ client that stalls mid-body trips the socket read timeout (408) instead of
 holding a handler thread.
 
 Run: ``python -m dmpfold2_tpu_torch.serve --port 8080 --weights params.npz
-[-d cpu] [--mesh DATA|auto]``. The device defaults to ``cuda``; without it
-the service raises.
+[-d cpu] [--mesh DATA[xSEQ]|auto]``. The device defaults to ``cuda``;
+without it the service raises.
 """
 
 from __future__ import annotations
@@ -447,8 +447,8 @@ def main(argv=None):
                          "traffic: the deployment's expected bucket mix")
     ap.add_argument("--mesh", default=None, metavar="DATA[xSEQ]|auto",
                     help="serve data-parallel over a mesh of this machine's GPUs, e.g. '2'; "
-                         "'auto' = every visible GPU (with -d cpu: CPU replicas); "
-                         "SEQ > 1 is not ported")
+                         "DATAxSEQ splits each fold's pair trunk by rows over SEQ GPUs; "
+                         "'auto' = every visible GPU (with -d cpu: CPU replicas)")
     args = ap.parse_args(argv)
     mesh = device = None
     if args.mesh is not None:

@@ -127,9 +127,10 @@ def train(data_dir: str = ".", clusters: str = "train_clust.lst", workdir: str =
     ``device`` (default ``cuda``); returns the parameters. Explicit keyword
     arguments override ``cfg``'s fields.
 
-    ``mesh`` (``parallel.mesh.make_mesh``, one device per process; in a
+    ``mesh`` (``parallel.mesh.make_mesh``, one data shard per process; in a
     process group, every rank calls ``train`` with the same arguments):
-    data-parallel training on the mesh's device, which replaces ``device``.
+    data-parallel training on the mesh row's first device, which replaces
+    ``device``; a row of ``n_seq > 1`` devices splits the trunk by rows.
     """
     cfg = cfg or TrainConfig()
     micro_batch = cfg.micro_batch if micro_batch is None else micro_batch
@@ -139,17 +140,17 @@ def train(data_dir: str = ".", clusters: str = "train_clust.lst", workdir: str =
     world_size, rank, n_data, step_mesh = 1, 0, 1, None
     if mesh is not None:
         if mesh.n_local != 1:
-            raise ValueError(f"train: a mesh with {mesh.n_local} devices in one process; "
-                             "data-parallel training runs one process per device (torchrun, "
-                             "or --coordinator)")
+            raise ValueError(f"train: a mesh with {mesh.n_local} data shards in one process; "
+                             "data-parallel training runs one process per data shard "
+                             "(torchrun, or --coordinator)")
         if device is not None:
             raise ValueError("train: pass a device or a mesh, not both")
         device = mesh.local_devices[0]
         world_size, rank, n_data = mesh.world_size, mesh.rank, mesh.n_data
         # the micro-batch splits evenly over the data axis
         micro_batch = -(-micro_batch // n_data) * n_data
-        if dist.is_available() and dist.is_initialized():
-            step_mesh = mesh  # train_step all-reduces over the group
+        if mesh.n_seq > 1 or (dist.is_available() and dist.is_initialized()):
+            step_mesh = mesh  # train_step splits the trunk over the row, all-reduces the group
     dev = resolve_device(device)
     clusters_path = os.path.join(data_dir, clusters)
     if not os.path.isfile(clusters_path):
@@ -305,8 +306,9 @@ def main(argv=None):
     ap.add_argument("--cwidth", type=int, default=128)
     ap.add_argument("--num-blocks", type=int, default=16)
     ap.add_argument("--mesh", default=None, metavar="DATA[xSEQ]|auto",
-                    help="data-parallel training over a mesh: DATA processes, one device "
-                         "each; 'auto' = the whole process group; SEQ > 1 is not ported")
+                    help="data-parallel training over a mesh: DATA processes, each with a row "
+                         "of SEQ devices over which the pair trunk is split by rows; 'auto' = "
+                         "the whole process group, one device each")
     ap.add_argument("--distributed", action="store_true",
                     help="join a process group from the env:// variables torchrun sets "
                          "(every process runs the same command)")
@@ -327,11 +329,13 @@ def main(argv=None):
 
     mesh, device = None, args.device
     if args.distributed or args.coordinator is not None or args.mesh is not None:
-        from ..parallel.mesh import initialize_distributed, parse_mesh
+        from ..parallel.mesh import initialize_distributed, mesh_shape, parse_mesh
 
         if args.distributed or args.coordinator is not None:
+            n_seq = 1 if args.mesh is None else mesh_shape(args.mesh)[1]
             device = initialize_distributed(args.coordinator, args.num_processes,
-                                            args.process_id, device=args.device)
+                                            args.process_id, device=args.device,
+                                            devices_per_process=n_seq)
             if args.mesh is None:
                 args.mesh = "auto"  # the whole group
         mesh = parse_mesh(args.mesh, device)

@@ -17,6 +17,11 @@ drawn at the global shape. The JAX package's
 vmapped per-sample path (``native_batch=False``) exists for GSPMD sharding
 and is not ported.
 
+Residue-axis sharding (a mesh whose rows hold ``n_seq > 1`` devices): each
+process's data shard runs the same native batch path with its trunk split
+by rows over its row (``gruresnet.forward_batched(seq=...)``); the dropout
+masks are the rows of the unsharded draw, so the step is the unsharded one.
+
 With ``precision="bf16"`` the trunk runs in bf16 with every block conv
 through ``kernels/conv_block.py:conv5x5_maxout_diff``: on a CUDA device the
 argmax mode of the hand-written conv kernel and its backward, on the CPU the
@@ -38,6 +43,7 @@ from ..features.dca import dca_or_zero
 from ..features.msa import msa_one_hot, reweight
 from ..models import gruresnet
 from ..ops.dropout import fold_in
+from ..parallel.sharding import SeqShards
 from ..weights import keypaths
 from .loss import fold_loss
 
@@ -142,7 +148,7 @@ def resolve_remat(params, batch_size: int, l_pad: int, nloops: int, fused: bool)
 def batch_loss_native(params, alnmat: torch.Tensor, targets: torch.Tensor, nseqs, nres,
                       draws, *, nloops: int, refine_steps: int = REFINE_STEPS,
                       dropout_seed: int | None = None, precision: str = "fp32", remat=True,
-                      slot_offset: int = 0, global_batch: int | None = None):
+                      slot_offset: int = 0, global_batch: int | None = None, seq=None):
     """The batched micro-batch loss: the samples' losses summed over the
     global batch size (their mean when this is the whole batch), and metrics
     likewise.
@@ -154,7 +160,8 @@ def batch_loss_native(params, alnmat: torch.Tensor, targets: torch.Tensor, nseqs
     times the memory). ``dropout_seed`` None turns dropout off. Under data
     parallelism these B samples are slots ``slot_offset ..`` of a global
     batch of ``global_batch`` (default B), and the dropout masks are drawn
-    for it.
+    for it. ``seq``: a ``parallel.sharding.SeqShards``, the trunk split by
+    rows over its devices.
     """
     x2s, tgts = [], []
     for i, (use_tf, noise) in enumerate(draws):
@@ -170,7 +177,7 @@ def batch_loss_native(params, alnmat: torch.Tensor, targets: torch.Tensor, nseqs
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     coords, confs = gruresnet.forward_batched(
         params, alnmat, torch.stack(x2s), nseqs, nres, nloops, refine_steps, rngs=rngs,
-        remat=remat, compute_dtype=dtype, shard=shard)
+        remat=remat, compute_dtype=dtype, shard=shard, seq=seq)
     per_sample = [fold_loss(coords[i], confs[i], tgts[i], int(nres[i]))
                   for i in range(len(draws))]
     losses = torch.stack([loss for loss, _ in per_sample])
@@ -260,12 +267,14 @@ def train_step(params, optimizer: Optimizer | None, batch: TrainBatch, seed: int
     On a CUDA device, widths the kernels cannot run raise ``ValueError``
     before the batch is uploaded.
 
-    ``mesh`` (``parallel.mesh.make_mesh`` in a process group, one device per
-    process): ``batch`` is this rank's shard, global slots ``rank * B ..``
-    of a micro-batch of ``n_data * B``; the metrics but ``sample_loss`` (this
-    shard's) are the global batch's, and the gradients are all-reduced
-    before the finiteness check and the update. A collective: every rank calls
-    it with a shard of the same bucket.
+    ``mesh`` (``parallel.mesh.make_mesh``, one data shard per process):
+    ``batch`` is this rank's shard, global slots ``rank * B ..`` of a
+    micro-batch of ``n_data * B``; the metrics but ``sample_loss`` (this
+    shard's) are the global batch's, and in a process group the gradients
+    are all-reduced before the finiteness check and the update (a
+    collective: every rank calls it with a shard of the same bucket). With
+    ``n_seq > 1`` the parameters are on the row's first device and the
+    trunk is split by rows over the row.
     """
     if not native_batch:
         raise NotImplementedError(
@@ -278,23 +287,31 @@ def train_step(params, optimizer: Optimizer | None, batch: TrainBatch, seed: int
     targets = torch.from_numpy(np.asarray(batch.targets, np.float32)).to(device)
     batch_size, l_pad = alnmat.shape[0], alnmat.shape[2]
     offset, total = 0, batch_size
+    seq = None
     if mesh is not None:
         if mesh.n_local != 1:
-            raise ValueError("train_step: data-parallel training runs one process per device "
-                             f"(this mesh has {mesh.n_local} local shards); launch one "
-                             "process per GPU (torchrun, or --coordinator)")
+            raise ValueError("train_step: data-parallel training runs one process per data "
+                             f"shard (this mesh has {mesh.n_local} local shards); launch one "
+                             "process per mesh row (torchrun, or --coordinator)")
         offset, total = mesh.first_shard * batch_size, mesh.n_data * batch_size
+        if mesh.n_seq > 1:
+            row = mesh.devices[0]
+            if torch.device(row[0]) != device:
+                raise ValueError(f"train_step: the parameters must be on the mesh row's first "
+                                 f"device {row[0]} (they are on {device})")
+            seq = SeqShards.split(row, l_pad)
+    group = mesh is not None and dist.is_available() and dist.is_initialized()
     draws = [draw_prep(fold_in(seed, offset + i), l_pad) for i in range(batch_size)]
     fused = precision == "bf16"
     remat = resolve_remat(params, batch_size, l_pad, nloops, fused)
     kw = dict(nloops=nloops, refine_steps=refine_steps, precision=precision, remat=remat,
-              slot_offset=offset, global_batch=total)
+              slot_offset=offset, global_batch=total, seq=seq)
 
     if not train:
         with torch.no_grad():
             _, metrics = batch_loss_native(params, alnmat, targets, batch.nseqs, batch.nres,
                                            draws, **kw)
-        if mesh is not None:
+        if group:
             _all_reduce(metrics)
         return _host(metrics)
 
@@ -303,7 +320,7 @@ def train_step(params, optimizer: Optimizer | None, batch: TrainBatch, seed: int
     params_l = leaves(params)
     grads = torch.autograd.grad(loss, params_l, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params_l, grads)]
-    if mesh is not None:
+    if group:
         grads = _all_reduce(metrics, grads)
     # after the all-reduce every rank holds the same bits of the summed
     # gradients, so every rank reads the same flag and takes or skips the step

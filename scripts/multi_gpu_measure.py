@@ -2,9 +2,11 @@
 """Measure the PyTorch port over several GPUs of one machine.
 
     python3 scripts/multi_gpu_measure.py [--procs 2] [--targets-per-bucket 32]
+    python3 scripts/multi_gpu_measure.py --seq
 
-Two measurements, each printed as one JSON line, after the cards' names and
-power limits (``nvidia-smi --query-gpu=name,power.limit``):
+Two measurements (or, with ``--seq``, the third alone), each printed as one
+JSON line, after the cards' names and power limits (``nvidia-smi
+--query-gpu=name,power.limit``):
 
 1. ``batch``: ``BatchFolder(mesh=make_mesh())`` (every visible card, one
    process, B 8 per card) against ``BatchFolder`` on one card (B 8), bf16,
@@ -19,6 +21,18 @@ power limits (``nvidia-smi --query-gpu=name,power.limit``):
    are PF10963's alignment with seeded 82-residue targets, 8 training
    clusters; the validation split is cut to 2 clusters (the repository's
    list holds 300, a 300-fold validation per epoch). Rank 0's log is kept.
+3. ``seq`` (``--seq``, four cards): residue-axis sharding of one long
+   target (``Folder(mesh=make_mesh(1, n))``), per engine (bf16, fp32) at
+   ``-n 1 -m 10``: a seeded 64 x 1536 target unsharded, over 2 and over 4
+   cards, and a seeded 64 x 2560 target (past the buckets: folded at its
+   exact length) over 2 and 4 cards and unsharded, whose failure (out of
+   memory) is recorded as its reading. Each: the wall times of 3 folds
+   after a warm-up fold (their median and range), and each card's peak
+   memory (``max_memory_allocated``).
+   Then one bf16 trunk pass at L 1536 over 2 and 4 cards under
+   torch.profiler: each card's device time by kind (the halo exchange's
+   copies and joins, the norms' reductions, the two trunk kernels, the
+   rest).
 
 Weights are random (``init_params(seed=0)``). Needs at least ``--procs``
 cards on one machine.
@@ -148,8 +162,130 @@ def measure_train(procs: int) -> dict:
             "rank0_log_tail": texts[0][-1500:]}
 
 
+SEQ_TARGETS = ((64, 1536), (64, 2560))
+SEQ_RUN = (1, 10)  # iterations, minsteps
+SEQ_REPEATS = 3    # timed folds per configuration
+# device kernel name fragments -> kind, first match wins
+SEQ_KINDS = (("halo", ("Memcpy", "memcpy", "CatArrayBatchedCopy", "FillFunctor")),
+             ("conv5x5_maxout", ("conv5x5_maxout_kernel",)),
+             ("gemm_maxout", ("gemm_maxout_kernel",)),
+             ("reduce", ("reduce_kernel",)))
+
+
+def _seq_fold(params, alnmat, precision: str, devices) -> dict:
+    """One warm-up fold and SEQ_REPEATS timed folds of ``alnmat`` on a 1 x n
+    mesh of ``devices`` (unsharded for one device): their wall times (each,
+    the median and the range) and each card's peak memory; an error (out of
+    memory) is the reading."""
+    from dmpfold2_tpu_torch.engine.fold import Folder
+    from dmpfold2_tpu_torch.parallel.mesh import make_mesh
+
+    row = {"cards": len(devices)}
+    folder = None
+    for d in devices:
+        torch.zeros(1, device=d)  # the card's allocator, whose peak is read below
+        torch.cuda.reset_peak_memory_stats(d)
+    try:
+        folder = (Folder(params, device=devices[0], precision=precision) if len(devices) == 1
+                  else Folder(params, mesh=make_mesh(1, len(devices), devices=devices),
+                              precision=precision))
+        run = dict(iterations=SEQ_RUN[0], minsteps=SEQ_RUN[1])
+        folder.fold(alnmat, **run)
+        walls = []
+        for _ in range(SEQ_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, confs = folder.fold(alnmat, **run)
+            walls.append(time.perf_counter() - t0)
+        row.update(wall_s=walls, wall_s_median=float(np.median(walls)),
+                   wall_s_range=[min(walls), max(walls)], mean_conf=float(confs.mean()))
+    except torch.cuda.OutOfMemoryError as exc:
+        row["error"] = f"out of memory: {str(exc)[:300]}"
+    except RuntimeError as exc:  # cuSOLVER reports its allocation failures as its own errors
+        if "ALLOC" not in str(exc) and "memory" not in str(exc):
+            raise
+        row["error"] = f"{type(exc).__name__}: {str(exc)[:300]}"
+    row["peak_gb"] = [torch.cuda.max_memory_allocated(d) / 1e9 for d in devices]
+    del folder
+    torch.cuda.empty_cache()
+    return row
+
+
+def _trunk_profile(params, alnmat, n: int) -> dict:
+    """One bf16 trunk pass of a fold of ``alnmat`` over n cards under
+    torch.profiler: per card, device milliseconds by SEQ_KINDS."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmpfold2_tpu_torch.engine.fold import Folder
+    from dmpfold2_tpu_torch.models import gruresnet
+    from dmpfold2_tpu_torch.parallel.mesh import make_mesh
+
+    captured = []
+    real = gruresnet.trunk_apply_bf16
+
+    def capture(*args):
+        if not captured:
+            captured.append(args)
+        return real(*args)
+
+    folder = Folder(params, mesh=make_mesh(1, n, devices=[f"cuda:{k}" for k in range(n)]),
+                    precision="bf16")
+    gruresnet.trunk_apply_bf16 = capture
+    try:
+        folder.fold(alnmat, iterations=0, minsteps=0)
+    finally:
+        gruresnet.trunk_apply_bf16 = real
+    args = captured[0]
+    with torch.inference_mode():
+        for _ in range(2):  # the second: the profiler's own start-up is paid in the first
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                real(*args)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    by_card: dict = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:  # kernels and copies, not the ops launching them
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = us if us is not None else getattr(evt, "self_cuda_time_total", 0.0)
+        kind = next((k for k, frags in SEQ_KINDS if any(f in evt.name for f in frags)), "other")
+        card = by_card.setdefault(f"cuda:{evt.device_index}", {})
+        card[kind] = card.get(kind, 0.0) + us / 1e3
+    for card in by_card.values():
+        total = sum(card.values())
+        card["total_ms"] = total
+        card["share"] = {k: v / total for k, v in card.items() if k != "total_ms" and total}
+    del folder, captured, args
+    torch.cuda.empty_cache()
+    return {"cards": n, "wall_ms": wall * 1e3, "by_card_ms": by_card}
+
+
+def measure_seq(params) -> list:
+    rng = np.random.default_rng(29)
+    alns = {l: rng.integers(0, 21, (n, l)).astype(np.uint8) for n, l in SEQ_TARGETS}
+    cards = [f"cuda:{k}" for k in range(4)]
+    rows = []
+    for precision in ("bf16", "fp32"):
+        for l, counts in ((1536, (1, 2, 4)), (2560, (2, 4, 1))):
+            for n in counts:
+                row = _seq_fold(params, alns[l], precision, cards[:n])
+                rows.append({"measure": "seq", "precision": precision, "shape": list(alns[l].shape),
+                             "iterations": SEQ_RUN[0], "minsteps": SEQ_RUN[1], **row})
+                print(json.dumps(rows[-1]), flush=True)
+    for n in (2, 4):
+        rows.append({"measure": "seq_trunk_profile", "shape": list(alns[1536].shape),
+                     **_trunk_profile(params, alns[1536], n)})
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--seq", action="store_true",
+                    help="only the residue-axis sharding measurement (four cards)")
     ap.add_argument("--procs", type=int, default=2)
     ap.add_argument("--targets-per-bucket", type=int, default=32)
     ap.add_argument("--rank", type=int, default=None)
@@ -166,8 +302,9 @@ def main() -> None:
                       "--process-id", str(args.rank)])
         print(json.dumps({"rank": args.rank, "epoch_wall_s": wall}), flush=True)
         return
-    if torch.cuda.device_count() < args.procs:
-        sys.exit(f"multi_gpu_measure: needs {args.procs} GPUs, found {torch.cuda.device_count()}")
+    need = 4 if args.seq else args.procs
+    if torch.cuda.device_count() < need:
+        sys.exit(f"multi_gpu_measure: needs {need} GPUs, found {torch.cuda.device_count()}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     from dmpfold2_tpu_torch.kernels import _build
@@ -175,6 +312,12 @@ def main() -> None:
 
     _build.build()
     params = init_params(seed=0, width=cs.WIDTH, cwidth=cs.CWIDTH, num_blocks=cs.BLOCKS)
+    if args.seq:
+        from dmpfold2_tpu_torch.engine.fold import use_full_fp32
+
+        use_full_fp32()
+        measure_seq(params)
+        return
     print(json.dumps(measure_batch(params, args.targets_per_bucket)), flush=True)
     print(json.dumps(measure_train(args.procs)), flush=True)
 

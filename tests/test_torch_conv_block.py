@@ -26,6 +26,7 @@ from dmpfold2_tpu.score import tm_score
 from dmpfold2_tpu_torch.engine import fold
 from dmpfold2_tpu_torch.kernels import conv_block
 from dmpfold2_tpu_torch.models import gruresnet, trunk
+from dmpfold2_tpu_torch.parallel.sharding import SeqShards
 from dmpfold2_tpu_torch.weights import params_from_jax
 
 from test_quality_gate import NRES, NSEQS, TM_FLOOR, _fold as _jax_fold, overfit_setup  # noqa: F401
@@ -204,9 +205,10 @@ def test_resnet_block_fused_norm_matches_jax(monkeypatch):
     x = jnp.asarray(rng.normal(size=(batch, l, l, width)) * mask, jnp.bfloat16)
     p = _jax_block(4, width)
     ref = np.asarray(jax_trunk._resnet_block_fused_norm(p, x, jnp.asarray(mask)), np.float32)
-    ours = trunk.resnet_block_fused_norm(
-        _port_block(p), torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16),
-        torch.from_numpy(mask).to(torch.bfloat16), torch.from_numpy(nres))
+    xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    (ours,) = trunk.resnet_block_fused_norm(
+        [_port_block(p)], [xt], [torch.from_numpy(mask).to(torch.bfloat16)],
+        [torch.from_numpy(nres)], SeqShards.split([xt.device], l))
     assert ours.dtype == torch.bfloat16
     ours = ours.float().numpy()
     np.testing.assert_allclose(ours, ref, atol=FUSED_TOL)
@@ -232,8 +234,9 @@ def test_input_layer_matches_jax(monkeypatch):
     w, b = conv_block.pack_gemm_weights(_oihw(p["w"]), _t(p["b"]), k_pad)
     xp = torch.zeros((2, l, l, k_pad), dtype=torch.bfloat16)
     xp[..., :19] = _t(x)
-    ours = conv_block.gemm_maxout_norm(xp, w, b, _t(p["gamma"]), _t(p["beta"]),
-                                       torch.from_numpy(nres), torch.from_numpy(mask))
+    (ours,) = trunk.input_layer_bf16(
+        [{"w": w, "b": b, "gamma": _t(p["gamma"]), "beta": _t(p["beta"])}], [xp],
+        [torch.from_numpy(mask)], [torch.from_numpy(nres)], SeqShards.split([xp.device], l))
     assert ours.dtype == torch.bfloat16
     np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32), atol=FUSED_TOL)
 
@@ -268,7 +271,8 @@ def test_trunk_apply_bf16_matches_jax():
     packed = trunk.pack_bf16(params_from_jax(tree)["trunk"])
     xp = torch.zeros((2, l, l, packed.k_pad), dtype=torch.bfloat16)
     xp[..., :c_in] = _t(x)
-    ours = trunk.trunk_apply_bf16(packed, xp, torch.from_numpy(mask))
+    ours = trunk.trunk_apply_bf16([packed], [xp], [torch.from_numpy(mask)],
+                                  torch.from_numpy(nres))
     assert ours.dtype == torch.float32 and ours.shape == (2, l, l, 2)
     ours = ours.numpy()
     np.testing.assert_allclose(ours, ref, atol=TRUNK_BF16_TOL)

@@ -105,8 +105,8 @@ def test_trunk_apply_matches(toy_jax, l_pad):
     x[:, :nres, :nres] = rng.normal(size=(1, nres, nres, 32 + 443))
     mask = np.zeros((1, l_pad, l_pad, 1), np.float32)
     mask[:, :nres, :nres] = 1.0
-    ours = trunk.trunk_apply(params_from_jax(toy_jax)["trunk"], torch.from_numpy(x),
-                             torch.from_numpy(mask)).numpy()
+    ours = trunk.trunk_apply([params_from_jax(toy_jax)["trunk"]], [torch.from_numpy(x)],
+                             [torch.from_numpy(mask)]).numpy()
     theirs = np.asarray(jax_trunk.trunk_apply(toy_jax["trunk"], jnp.asarray(x), jnp.asarray(mask)))
     assert ours.shape == (1, l_pad, l_pad, 2)
     np.testing.assert_allclose(ours, theirs, atol=2e-4)

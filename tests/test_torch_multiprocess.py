@@ -345,10 +345,10 @@ def test_make_mesh_errors_and_parse():
         mesh_mod.make_mesh(3, devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="needs 1 devices but only 0"):
         mesh_mod.make_mesh(devices=[])
-    with pytest.raises(NotImplementedError, match="Residue-axis sharding"):
-        mesh_mod.make_mesh(2, 2, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mesh_mod.parse_mesh("1x2", "cpu")
+    grid = mesh_mod.make_mesh(2, 2, devices=["cpu"] * 4)
+    assert grid.shape == {"data": 2, "seq": 2} and grid.devices == ((torch.device("cpu"),) * 2,) * 2
+    row = mesh_mod.parse_mesh("1x2", "cpu")
+    assert row.shape == {"data": 1, "seq": 2} and row.local_devices == [torch.device("cpu")]
     mesh = mesh_mod.parse_mesh("3", "cpu")
     assert mesh.shape == {"data": 3, "seq": 1} and mesh.local_devices == [torch.device("cpu")] * 3
     assert mesh_mod.owned_batch_indices(mesh, 6) == set(range(6))

@@ -244,10 +244,37 @@ def test_lone_request_is_a_batch_of_one(monkeypatch):
     assert service.batch_stats == {"dispatches": 1, "requests": 1, "max_coalesced": 1}
 
 
-def test_mesh_is_refused():
-    """A mesh with a residue (seq) axis: that sharding is not ported."""
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+class _Built(Exception):
+    """Raised in place of building the server: carries serve()'s arguments."""
+
+
+def _capture_serve(monkeypatch):
+    """``serve_mod.main`` up to the server: weights a stub, ``serve`` raising
+    :class:`_Built` with its arguments."""
+    from dmpfold2_tpu_torch.engine import fold as fold_mod
+
+    def fake_serve(*args, **kw):
+        raise _Built(args, kw)
+
+    monkeypatch.setattr(fold_mod, "load_weights", lambda path=None: {})
+    monkeypatch.setattr(serve_mod, "serve", fake_serve)
+
+
+def test_mesh_is_refused(monkeypatch):
+    """A mesh with an empty residue (seq) axis is refused before the server
+    is built."""
+    _capture_serve(monkeypatch)
+    with pytest.raises(ValueError, match="seq axis"):
+        serve_mod.main(["--mesh", "2x0", "-d", "cpu"])
+
+
+def test_mesh_data_x_seq_reaches_serve(monkeypatch):
+    """``--mesh 4x2 -d cpu`` hands ``serve`` a 4 x 2 grid of CPU shards."""
+    _capture_serve(monkeypatch)
+    with pytest.raises(_Built) as built:
         serve_mod.main(["--mesh", "4x2", "-d", "cpu"])
+    mesh = built.value.args[1]["mesh"]
+    assert mesh.shape == {"data": 4, "seq": 2} and mesh.n_local == 4
 
 
 def test_sigterm_graceful_shutdown(tmp_path):

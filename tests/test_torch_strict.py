@@ -32,6 +32,8 @@ from dmpfold2_tpu_torch.parallel import stream
 from dmpfold2_tpu_torch.utils import aln
 from dmpfold2_tpu_torch.weights import params_from_jax
 
+from test_torch_serve import _Built, _capture_serve
+
 EXAMPLE_ALN = assets.example_aln_path()
 # the whole fold against JAX (tests/test_model_parity.py's toy bounds)
 CONF_TOL, CA_TOL = 2e-4, 5e-3
@@ -329,7 +331,7 @@ def test_cli_refuses_tpu_dca_methods(toy_npz):
         run_dmpfold(["-i", EXAMPLE_ALN, "-d", "cpu", "-w", toy_npz, "--dca-method", "schur"])
 
 
-def test_service_folds_in_strict(params):
+def test_service_folds_in_strict(params, monkeypatch):
     """``serve --precision fp32_strict``: the parser takes it, and the
     service folds a request with it through its batch engine."""
     service = serve_mod.FoldService(params, precision="fp32_strict", device="cpu",
@@ -340,9 +342,13 @@ def test_service_folds_in_strict(params):
         assert pdb.startswith("REMARK  CONF:") and pdb.rstrip().endswith("END")
     finally:
         service.close()
-    # the parser takes the precision, then refuses the residue-axis mesh
-    with pytest.raises(NotImplementedError, match="--mesh"):
+    # the parser takes the precision and the residue-axis mesh: serve() is
+    # handed both (and raises here in place of building the server)
+    _capture_serve(monkeypatch)
+    with pytest.raises(_Built) as built:
         serve_mod.main(["--precision", "fp32_strict", "--mesh", "2x2", "-d", "cpu"])
+    args, kw = built.value.args
+    assert args[3] == "fp32_strict" and kw["mesh"].shape == {"data": 2, "seq": 2}
 
 
 # ---------------------------------------------------------------- on the card

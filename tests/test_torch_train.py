@@ -315,7 +315,8 @@ def test_bf16_step_trains_and_follows_fp32(toy):
     cot = torch.from_numpy(rng.normal(size=(B, L, L, 2)).astype(np.float32))
     grads = {}
     for dtype in (torch.float32, torch.bfloat16):
-        out = trunk.trunk_apply(params["trunk"], x, mask, compute_dtype=dtype, remat="save_conv")
+        out = trunk.trunk_apply([params["trunk"]], [x], [mask], compute_dtype=dtype,
+                                remat="save_conv")
         grads[dtype] = torch.cat([g.reshape(-1) for g in torch.autograd.grad(
             (out * cot).sum(), step.leaves(params["trunk"]))])
     assert float(torch.nn.functional.cosine_similarity(
