@@ -91,6 +91,19 @@ Phases, each printing one JSON line:
    fp32 and fp32_strict at ``-n 0 -m 0``, a seeded L 1024 target in bf16;
    ``train_step`` on the mesh against the unsharded step (path "train bf16
    seq"); ``serve`` over the mesh. See ``phase_seq``.
+8d. long   -- the long target of BASELINE.json config 4: a seeded 3000 x 720
+   alignment (bucket 3000 x 736, a (21 x 736)^2 = 15456^2 DCA covariance),
+   bf16, 30 recycles, 100 minsteps. (a) ``pair_features`` per DCA method
+   (cholesky, blocked and schur, one route that runs the blocked inverse
+   past 8192; lu): each method's features within 1e-5 of LU's (of max
+   |ref|), the three Cholesky-type names the same bits, their peak memory at
+   most 2.5 (21 x 736)^2 fp32 matrices, each method's time and peak; the
+   inverse alone, blocked against the stock Cholesky inverse; (b) the blocked
+   features of a seeded 256 x 416 alignment (n 8736) card vs CPU within
+   1e-4; (c) vgru at 3000 x 736 and the fold's other kernels at L 736
+   against their plain versions, then one fold through ``Folder`` after a
+   warm-up: launches (path "fold bf16 long"), a whole PDB, the wall time and
+   the model FLOP utilization. See ``phase_long``.
 8b. evaluate -- ``train/evaluate.py`` on eight seeded validation targets in
    two buckets, batch 8, ``-n 10 -m 100``, in bf16 and fp32_strict: every
    target scored, each record equal to ``score.tm_score`` of its fold;
@@ -115,7 +128,8 @@ micro-steps for conv5x5_maxout_diff; ``launches_by_path`` gives each path's
 own count, phase multi's "batch bf16 mesh" and "train bf16 ddp" (both
 ranks) and phase seq's "fold bf16 seq" and "train bf16 seq" among them,
 ``batch_shape`` the time and bound at the batch shapes, ``slab`` the slab
-form's at phase seq's shape), and last
+form's at phase seq's shape, vgru's ``long`` its case at 3000 x 736 in phase
+long, whose path "fold bf16 long" is among the paths), and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits nonzero without the last
 line. It imports neither JAX nor the JAX package.
 """
@@ -138,10 +152,13 @@ sys.path.insert(0, REPO)
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 outside the tensor
 # cores, bf16 on the tensor cores and HBM3 bandwidth; bound_ms is the larger
 # of the operations time and the bytes time. Alone, without the package, the
-# script stops here.
-from dmpfold2_tpu_torch.utils.assets import example_aln_path  # noqa: E402
-from dmpfold2_tpu_torch.utils.flops import (PEAK_BF16_TENSOR, PEAK_FP32_FLOPS,  # noqa: E402
-                                            PEAK_HBM_BYTES, fold_flops, mfu)
+# script stops here with exit code 1 and no result, as it must.
+try:
+    from dmpfold2_tpu_torch.utils.assets import example_aln_path
+    from dmpfold2_tpu_torch.utils.flops import (PEAK_BF16_TENSOR, PEAK_FP32_FLOPS,
+                                                PEAK_HBM_BYTES, fold_flops, mfu)
+except ModuleNotFoundError as exc:
+    sys.exit(f"chip_smoke: the dmpfold2_tpu_torch package is not beside this script ({exc})")
 
 EXAMPLE_ALN = example_aln_path()
 # the peak each engine's model FLOP utilization is read against, named beside it
@@ -335,10 +352,7 @@ def phase_kernels(params) -> dict:
         lib_out = gru_lib(onehot)[1][-1]
         lib_err = (lib_out - vgru.vgru_final_cols(layers, aln, uniform)).abs().max().item()
         library_ms = time_ms(lambda: gru_lib(onehot), reps=10)
-    h = WIDTH
-    flops = 2 * 3 * h * 3 * h * float(uniform.sum().item())
-    nbytes = 4 * (aln.numel() + L_PAD + 22 * 3 * h + 3 * h * 3 * h + 4 * 3 * h + L_PAD * h)
-    b, by = bound_ms(flops, nbytes)
+    b, by = _vgru_bound(aln, uniform)
     rows["vgru"] = {"name": "vgru", "route": "cuda", "source": "dmpfold2_tpu_torch/csrc/vgru.cu",
                     "replaces": "dmpfold2_tpu/kernels/vgru.py:113", "max_abs_err": err,
                     "tol": GRU_TOL, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
@@ -525,6 +539,32 @@ def _refine_kernel(params, rng, cases) -> dict:
                      "of 16 CTAs per target", "shapes": shapes}
 
 
+def _packed_trunk_weights(params, dev):
+    """The main path's block-0 conv and input-layer weights on ``dev``,
+    packed as the bf16 engine packs them: (conv_w, conv_b, gemm_w, gemm_b,
+    the GEMM's padded K)."""
+    from dmpfold2_tpu_torch.kernels import conv_block
+
+    trunk = params["trunk"]
+    conv_w, conv_b = conv_block.pack_conv5x5_weights(trunk["blocks"][0]["maxout"]["w"].to(dev),
+                                                     trunk["blocks"][0]["maxout"]["b"].to(dev))
+    k_pad = conv_block.gemm_k_pad(GEMM_K_IN)
+    gemm_w, gemm_b = conv_block.pack_gemm_weights(trunk["input"]["w"].to(dev),
+                                                  trunk["input"]["b"].to(dev), k_pad)
+    return conv_w, conv_b, gemm_w, gemm_b, k_pad
+
+
+def _vgru_bound(aln: torch.Tensor, valid: torch.Tensor) -> tuple[float, str]:
+    """vgru's bound for (rows, columns) tokens ``aln`` and per-column depths
+    ``valid``: its two layers' products over every valid cell, and each input
+    read and output written once."""
+    h = WIDTH
+    flops = 2 * 3 * h * 3 * h * float(valid.sum().item())
+    nbytes = 4 * (aln.numel() + valid.numel() + 22 * 3 * h + 3 * h * 3 * h + 4 * 3 * h
+                  + valid.numel() * h)
+    return bound_ms(flops, nbytes)
+
+
 def _trunk_check(kernel, plain, x, w, b, nr) -> dict:
     """A bf16 trunk kernel against its plain version on the same inputs:
     the output within one bf16 ulp, the sums within STATS_RTOL, the same bits
@@ -554,12 +594,7 @@ def _trunk_kernels(params, rng, cases) -> dict:
     from dmpfold2_tpu_torch.kernels import conv_block
 
     dev = torch.device("cuda")
-    trunk = params["trunk"]
-    conv_w, conv_b = conv_block.pack_conv5x5_weights(trunk["blocks"][0]["maxout"]["w"].to(dev),
-                                                     trunk["blocks"][0]["maxout"]["b"].to(dev))
-    k_pad = conv_block.gemm_k_pad(GEMM_K_IN)
-    gemm_w, gemm_b = conv_block.pack_gemm_weights(trunk["input"]["w"].to(dev),
-                                                  trunk["input"]["b"].to(dev), k_pad)
+    conv_w, conv_b, gemm_w, gemm_b, k_pad = _packed_trunk_weights(params, dev)
     kinds = {
         "conv5x5_maxout": (conv_block.conv5x5_maxout_stats, conv_block.conv5x5_maxout_stats_plain,
                            conv_w, conv_b, CWIDTH),
@@ -1195,11 +1230,7 @@ def _batch_kernel_shapes(params, rng) -> dict:
     depth = torch.tensor(nseqs, dtype=torch.int32, device=dev).repeat_interleave(l)
     _, check = held(lambda: vgru.vgru_final_cols(layers, aln, depth),
                     lambda: vgru.vgru_final_cols_plain(layers, aln, depth), GRU_TOL)
-    h = WIDTH
-    flops = 2 * 3 * h * 3 * h * float(depth.sum().item())
-    nbytes = 4 * (aln.numel() + depth.numel() + 22 * 3 * h + 3 * h * 3 * h + 4 * 3 * h
-                  + depth.numel() * h)
-    b, by = bound_ms(flops, nbytes)
+    b, by = _vgru_bound(aln, depth)
     out["vgru"] = {"shape": f"{n_rows} rows x {BATCH_SIZE * l} columns, depths {nseqs}",
                    **check, "ms": time_ms(lambda: vgru.vgru_final_cols(layers, aln, depth), reps=3),
                    "bound_ms": b, "bound_by": by}
@@ -1265,12 +1296,7 @@ def _batch_kernel_shapes(params, rng) -> dict:
                      "ok": all(v["ok"] for v in shapes.values()), "shapes": shapes}
     # the bf16 trunk kernels at B 8, L 256 with the main path's weights, on
     # inputs that are zero outside each target's nres x nres, as the trunk's
-    trunk = params["trunk"]
-    conv_w, conv_b = conv_block.pack_conv5x5_weights(trunk["blocks"][0]["maxout"]["w"].to(dev),
-                                                     trunk["blocks"][0]["maxout"]["b"].to(dev))
-    k_pad = conv_block.gemm_k_pad(GEMM_K_IN)
-    gemm_w, gemm_b = conv_block.pack_gemm_weights(trunk["input"]["w"].to(dev),
-                                                  trunk["input"]["b"].to(dev), k_pad)
+    conv_w, conv_b, gemm_w, gemm_b, k_pad = _packed_trunk_weights(params, dev)
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
     valid = (torch.arange(l, device=dev)[None, :] < nres_t[:, None]).to(torch.bfloat16)
     npix = BATCH_SIZE * l * l
@@ -1432,7 +1458,8 @@ def phase_batch(params, precision: str) -> dict:
           "launches": launches, "launches_per_batch": per_batch, "expected_per_batch": expected,
           "log_events": events, "host_syncs": host_syncs,
           "profile_one_batch": {"bucket": list(BATCH_BUCKETS[1]), "wall_ms": prof_wall_ms,
-                                "device_busy_ms": busy, "idle_share": 1.0 - busy / prof_wall_ms,
+                                "device_busy_ms": busy,
+                                "idle_share": _idle_share(busy, prof_wall_ms),
                                 "by_category_ms": dict(sorted(by_cat.items(),
                                                               key=lambda kv: -kv[1])),
                                 "launches_by_category": kernel_launches},
@@ -2334,12 +2361,7 @@ def _seq_kernels(params, rng) -> tuple[list, dict]:
     from dmpfold2_tpu_torch.parallel.sharding import SeqShards, exchange_halo, scatter_rows
 
     dev = torch.device("cuda")
-    trunk = params["trunk"]
-    conv_w, conv_b = conv_block.pack_conv5x5_weights(trunk["blocks"][0]["maxout"]["w"].to(dev),
-                                                     trunk["blocks"][0]["maxout"]["b"].to(dev))
-    k_pad = conv_block.gemm_k_pad(GEMM_K_IN)
-    gemm_w, gemm_b = conv_block.pack_gemm_weights(trunk["input"]["w"].to(dev),
-                                                  trunk["input"]["b"].to(dev), k_pad)
+    conv_w, conv_b, gemm_w, gemm_b, k_pad = _packed_trunk_weights(params, dev)
     l_pad = SEQ_KERNEL_L
 
     def inputs(batch, c_in, width):
@@ -2687,6 +2709,258 @@ def phase_seq(params) -> dict:
                                       "train bf16 seq": train_launches}}
 
 
+# ---------------------------------------------------------------- long
+#
+# Phase long: the long target of BASELINE.json config 4 ("nres >= 700, deep
+# MSA, 30 iterations"), in the JAX bench's form (bench.py:202-215): a seeded
+# 3000 x 720 alignment, bucket 3000 x 736, bf16, 30 recycles, 100 minsteps.
+# Its DCA covariance is (21 x 736)^2 = 15456^2, past BLOCKED_THRESHOLD, so
+# "cholesky" runs the blocked inverse in place (ops/chol.py).
+
+LONG_SHAPE = (3000, 720)
+LONG_ITERATIONS, LONG_MINSTEPS = 30, 100
+LONG_METHODS = ("cholesky", "blocked", "schur", "lu")
+# the Cholesky-type names, one route by size (features/dca.py)
+LONG_CHOLESKY = LONG_METHODS[:3]
+# pair_features's peak in (21 l_pad)^2 fp32 matrices, with the blocked
+# inverse: its (L, L, 443) output and the covariance are two; the one-hot and
+# its centred copy (0.19 each at depth 3000) and a panel come on top
+LONG_PEAK_MAX = 2.5
+# card against CPU at the first bucket past the threshold (n 8736): a seeded
+# 256-row alignment, the blocked features within phase strict's card-vs-CPU
+# bound
+LONG_CPU_SHAPE = (256, 416)
+LONG_REPS = 3  # timed features steps per method, after one warm-up
+
+
+def _long_features(alnmat, dmap, nseqs: int, nres: int) -> dict:
+    """pair_features on the card per DCA method: each method's features
+    against LU's within DCA_LU_VS_CHOL, the Cholesky-type names the same bits
+    (one route: the blocked inverse past the threshold), each method's peak
+    memory in (21 l_pad)^2 fp32 matrices and its time (CUDA events)."""
+    from dmpfold2_tpu_torch.engine.fold import pair_features
+    from dmpfold2_tpu_torch.features.dca import NUM_DCA_CHANNELS
+
+    unit = (21 * alnmat.shape[2]) ** 2 * 4
+    feats, rows = {}, {}
+    for method in LONG_METHODS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        x2 = pair_features(alnmat, [nseqs], [nres], dmap, method)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / unit
+        feats[method] = x2[0, ..., :NUM_DCA_CHANNELS]
+        del x2
+        ms = time_ms(lambda m=method: pair_features(alnmat, [nseqs], [nres], dmap, m),
+                     reps=LONG_REPS, warmup=1)
+        rows[method] = {"peak_units": peak, "ms": ms}
+    ref = feats["lu"]
+    scale = ref.abs().max().item()
+    for method in LONG_METHODS:
+        rows[method]["vs_lu"] = (feats[method] - ref).abs().max().item() / scale
+    same = all(torch.equal(feats[m], feats["cholesky"]) for m in LONG_CHOLESKY)
+    del feats, ref
+    inverses = _long_inverses(alnmat[0], nseqs, nres)
+    failed = ([f"{m} vs lu" for m in LONG_METHODS if not rows[m]["vs_lu"] <= DCA_LU_VS_CHOL]
+              + [f"{m} peak" for m in LONG_CHOLESKY
+                 if not rows[m]["peak_units"] <= LONG_PEAK_MAX])
+    if not same:
+        failed.append("the Cholesky-type names are not one route")
+    if not inverses["blocked_vs_stock"] <= DCA_LU_VS_CHOL:
+        failed.append("blocked inverse vs stock")
+    return {"shape": list(alnmat.shape[1:]), "n": 21 * alnmat.shape[2], "unit_bytes": unit,
+            "scale": scale, "methods": rows, "inverse_alone": inverses,
+            "cholesky_names_same_bits": same,
+            "tols": {"vs_lu": DCA_LU_VS_CHOL, "peak_units": LONG_PEAK_MAX}, "failed": failed}
+
+
+def _long_inverses(aln, nseqs: int, nres: int, penalty: float = 4.5) -> dict:
+    """The inverse alone on this target's regularized covariance (built here
+    as ``fast_dca`` builds it; CUDA events, a fresh copy each call, the
+    copy's time subtracted): the blocked route, the stock Cholesky inverse it
+    replaces past the threshold (``cholesky_ex`` + ``cholesky_inverse``) and
+    LU; the blocked inverse against the stock one in max |ref|."""
+    from dmpfold2_tpu_torch.features import msa
+    from dmpfold2_tpu_torch.ops import chol
+
+    oh = msa.msa_one_hot(aln, nseqs, nres)
+    w = msa.reweight(oh, nres)
+    x = oh.reshape(oh.shape[0], -1)
+    wsum = w.sum()
+    num_points = wsum - torch.sqrt(wsum / nseqs)
+    xc = (x - (x * w[:, None]).sum(dim=0, keepdim=True) / num_points) * torch.sqrt(w[:, None])
+    del oh, x
+    cov = xc.T @ xc
+    del xc
+    cov /= num_points
+    cov.diagonal().add_(penalty / torch.sqrt(wsum))
+
+    def stock(a):
+        return torch.cholesky_inverse(torch.linalg.cholesky_ex(a).L)
+
+    inverses = {"blocked": chol.blocked_spd_inverse_, "stock_cholesky": stock,
+                "lu": lambda a: torch.linalg.inv_ex(a).inverse}
+    copy_ms = time_ms(lambda: cov.clone(), reps=LONG_REPS, warmup=1)
+    out = {f"{name}_ms": time_ms(lambda f=f: f(cov.clone()), reps=LONG_REPS, warmup=1) - copy_ms
+           for name, f in inverses.items()}
+    ref = stock(cov.clone())
+    blocked = chol.blocked_spd_inverse_(cov)
+    out["blocked_vs_stock"] = (blocked - ref).abs().max().item() / ref.abs().max().item()
+    out["n"] = cov.shape[0]
+    return out
+
+
+def _long_card_vs_cpu() -> dict:
+    """The blocked features ("cholesky" past the threshold) of a seeded
+    256 x 416 alignment on the card against the CPU."""
+    from dmpfold2_tpu_torch.features import dca, msa
+
+    nseqs, nres = LONG_CPU_SHAPE
+    aln = np.random.default_rng(37).integers(0, 22, LONG_CPU_SHAPE).astype(np.int32)
+    out, secs = {}, {}
+    for dev in ("cpu", "cuda"):
+        oh = msa.msa_one_hot(torch.from_numpy(aln).to(dev), nseqs, nres)
+        w = msa.reweight(oh, nres)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[dev] = dca.fast_dca(oh, w, nseqs, nres).cpu()
+        secs[dev] = time.perf_counter() - t0
+    scale = out["cpu"].abs().max().item()
+    err = (out["cuda"] - out["cpu"]).abs().max().item() / scale
+    return {"shape": list(LONG_CPU_SHAPE), "n": 21 * nres, "method": "cholesky (blocked)",
+            "card_vs_cpu": err, "tol": DCA_CARD_VS_CPU, "seconds": secs,
+            "failed": [] if err <= DCA_CARD_VS_CPU else ["card vs cpu"]}
+
+
+def _long_vgru(params, alnmat) -> dict:
+    """vgru at the fold's shape (3000 rows x 736 columns, every column at
+    depth 3000) against its plain version, with its time and bound."""
+    from dmpfold2_tpu_torch.kernels import vgru
+
+    layers = [{k: v.to("cuda") for k, v in p.items()} for p in params["vgru"]]
+    cols = alnmat[0].contiguous()
+    valid = torch.full((cols.shape[1],), cols.shape[0], dtype=torch.int32, device="cuda")
+    out = vgru.vgru_final_cols(layers, cols, valid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = vgru.vgru_final_cols_plain(layers, cols, valid)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (out - ref).abs().max().item()
+    # CUDA events: a launch takes about 0.4 s, so the wrapper's host time is
+    # nothing beside it (the profiler once saw none of these launches after
+    # the earlier phases, and device_ms raised)
+    ms = time_ms(lambda: vgru.vgru_final_cols(layers, cols, valid), reps=3, warmup=1)
+    b, by = _vgru_bound(cols, valid)
+    return {"shape": [*cols.shape, WIDTH], "max_abs_err": err, "tol": GRU_TOL, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None,
+            "ok": err <= GRU_TOL}
+
+
+def _long_kernels(params, l_pad: int, nres: int) -> dict:
+    """The fold's other kernels at its shapes (B 1, L 736, nres 720), each
+    against its plain version with the kernel phase's limits: one biGRU layer
+    of coord_gru (T 736), refine step by step along the plain path from a
+    random walk (MINSTEPS steps), the two bf16 trunk kernels with the main
+    path's weights on inputs zero outside nres x nres."""
+    from dmpfold2_tpu_torch.kernels import conv_block, refine, rgru
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(43)
+    nr = torch.tensor([nres], dtype=torch.int32, device=dev)
+    out = {}
+    hid = WIDTH // 2
+    layer = {d: {k: v.to(dev) for k, v in params["coord_gru"][0][d].items()}
+             for d in ("fwd", "bwd")}
+    xf, xb = (torch.from_numpy(rng.normal(size=(l_pad, 1, 3 * hid)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    e = (rgru.gru_seq_bidir(layer["fwd"], layer["bwd"], xf, xb, nr)
+         - rgru.gru_seq_bidir_plain(layer["fwd"], layer["bwd"], xf, xb, nr)).abs().max().item()
+    out["rgru"] = {"shape": f"T {l_pad}, B 1, valid {nres}", "max_abs_err": e, "tol": GRU_TOL,
+                   "ok": e <= GRU_TOL}
+    ca = torch.from_numpy(_chain(l_pad, rng))[None].to(dev)
+    e = _refine_stepwise_err(refine, ca, nr)
+    out["refine"] = {"shape": f"L {l_pad}, nres {nres}, random walk",
+                     "stepwise_max_abs_err": e, "tol": REFINE_TOL, "ok": e <= REFINE_TOL}
+    conv_w, conv_b, gemm_w, gemm_b, k_pad = _packed_trunk_weights(params, dev)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    valid = (torch.arange(l_pad, device=dev) < nres).to(torch.bfloat16)
+    for kind, kernel, plain, w, bias, c_in, width in (
+            ("conv5x5_maxout", conv_block.conv5x5_maxout_stats,
+             conv_block.conv5x5_maxout_stats_plain, conv_w, conv_b, CWIDTH, CWIDTH),
+            ("gemm_maxout", conv_block.gemm_maxout_stats, conv_block.gemm_maxout_stats_plain,
+             gemm_w, gemm_b, GEMM_K_IN, k_pad)):
+        x = torch.zeros((1, l_pad, l_pad, width), dtype=torch.bfloat16, device=dev)
+        x[..., :c_in] = (torch.randn((1, l_pad, l_pad, c_in), device=dev, generator=gen)
+                         .to(torch.bfloat16) * valid[:, None, None] * valid[None, :, None])
+        out[kind] = {"shape": f"B 1, L {l_pad}, nres {nres}",
+                     **_trunk_check(kernel, plain, x, w, bias, nr)}
+        del x
+    return out
+
+
+def phase_long(params) -> dict:
+    """Phase long: (a) the DCA step at bucket 3000 x 736 per method; (b) the
+    blocked features card vs CPU at 256 x 416; (c) the config 4 fold through
+    ``Folder(precision="bf16").fold`` after a warm-up: launches, vgru against
+    plain at its shape, whole PDB, wall time and model FLOP utilization.
+    Returns the fold's launches and vgru's row."""
+    from dmpfold2_tpu_torch.engine.buckets import bucket_shape
+    from dmpfold2_tpu_torch.engine.fold import Folder, pad_target, use_full_fp32
+
+    use_full_fp32()
+    t_phase = time.perf_counter()
+    nseqs, nres = LONG_SHAPE
+    aln = np.random.default_rng(41).integers(0, 22, LONG_SHAPE).astype(np.uint8)
+    n_pad, l_pad = bucket_shape(nseqs, nres)
+    aln_p, dmap = pad_target(aln, None, n_pad, l_pad)
+    alnmat = torch.from_numpy(aln_p).cuda()[None]
+    dmap_t = torch.from_numpy(dmap).cuda()[None]
+    features = _long_features(alnmat, dmap_t, nseqs, nres)
+    card_cpu = _long_card_vs_cpu()
+    vgru_row = _long_vgru(params, alnmat)
+    kernels = _long_kernels(params, l_pad, nres)
+    del dmap_t
+    torch.cuda.empty_cache()
+
+    folder = Folder(params, device="cuda", precision="bf16")
+    folder.fold(aln, iterations=1, minsteps=LONG_MINSTEPS // 10)  # warm-up: the same shapes
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coords, confs = folder.fold(aln, iterations=LONG_ITERATIONS, minsteps=LONG_MINSTEPS)
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    # recorded, not held: with no device time traced its idle share is null
+    profile_row = _profiled(lambda: folder.fold(aln, iterations=LONG_ITERATIONS,
+                                                minsteps=LONG_MINSTEPS))
+    del folder
+    passes = LONG_ITERATIONS + 1  # EXPECTED_LAUNCHES' rule
+    expected = {"vgru": 1, "rgru": 2 + 3 * passes, "refine": 2, "conv5x5_maxout": 16 * passes,
+                "gemm_maxout": passes, "conv5x5_maxout_diff": 0}
+    checks = {**_fold_checks(coords, confs, aln), "launches": launches == expected,
+              "vgru": vgru_row["ok"], **{k: row["ok"] for k, row in kernels.items()}}
+    flops = fold_flops(n_pad, l_pad, LONG_ITERATIONS, LONG_MINSTEPS)
+    peak, peak_name = MFU_PEAK["bf16"]
+    failed = ([f"features {k}" for k in features["failed"]]
+              + [f"card vs cpu {k}" for k in card_cpu["failed"]]
+              + [k for k, ok in checks.items() if not ok])
+    emit({"phase": "long", "config": "BASELINE.json config 4", "shape": list(LONG_SHAPE),
+          "bucket": [n_pad, l_pad], "precision": "bf16", "iterations": LONG_ITERATIONS,
+          "minsteps": LONG_MINSTEPS, "features": features, "card_vs_cpu": card_cpu,
+          "vgru": vgru_row, "kernels": kernels, "wall_s": wall, "fold_flops": flops,
+          "mfu_peak": peak_name, "mfu": mfu(flops, wall, peak), "profile": profile_row,
+          "launches": launches, "expected_launches": expected,
+          "mean_conf": float(confs.mean()), "checks": checks,
+          "phase_s": time.perf_counter() - t_phase, "failed": failed})
+    if failed:
+        raise AssertionError(f"long checks failed: {failed}")
+    return {"launches": launches, "vgru": vgru_row}
+
+
 # kernel-name fragments -> category, first match wins
 PROFILE_CATEGORIES = (
     ("vgru", ("vgru_kernel",)), ("rgru", ("rgru",)), ("refine", ("refine_kernel",)),
@@ -2717,19 +2991,20 @@ def _category(name: str) -> str:
                 "other")
 
 
-def phase_profile(params, precision: str) -> None:
-    """Device time of one more default fold by kernel, from torch.profiler
-    (profiler overhead included in its wall time)."""
+def _idle_share(busy_ms: float, wall_ms: float):
+    """1 - busy / wall, or None when the profiler traced no device time (a
+    share it did not measure)."""
+    return 1.0 - busy_ms / wall_ms if busy_ms > 0 and wall_ms > 0 else None
+
+
+def _profiled(fn) -> dict:
+    """Device time of ``fn()`` by kernel and category from torch.profiler
+    (profiler overhead included in its wall time), its idle share and launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    from dmpfold2_tpu_torch import aln_to_coords
-    from dmpfold2_tpu_torch.config import FoldConfig
-
-    kw = dict(device="cuda", params=params, iterations=ITERATIONS, minsteps=MINSTEPS,
-              config=FoldConfig(precision=precision))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        aln_to_coords(EXAMPLE_ALN, **kw)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = _device_kernels(prof)
@@ -2741,13 +3016,23 @@ def phase_profile(params, precision: str) -> None:
         names.setdefault(cat, []).append({"name": name[:90], "count": count, "ms": ms})
     busy = sum(ms for *_, ms in kernels)
     top = kernels[:12]
-    emit({"phase": "profile", "precision": precision, "wall_ms": wall_ms,
-          "device_busy_ms": busy,
-          "idle_share": (1.0 - busy / wall_ms) if wall_ms else None,
-          "by_category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
-          "kernel_launches": sum(count for _, count, _ in kernels),
-          "largest_by_category": {c: v[:3] for c, v in names.items()},
-          "top_kernels": [{"name": n[:90], "count": c, "ms": ms} for n, c, ms in top]})
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "traced": busy > 0,
+            "idle_share": _idle_share(busy, wall_ms),
+            "by_category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+            "kernel_launches": sum(count for _, count, _ in kernels),
+            "largest_by_category": {c: v[:3] for c, v in names.items()},
+            "top_kernels": [{"name": n[:90], "count": c, "ms": ms} for n, c, ms in top]}
+
+
+def phase_profile(params, precision: str) -> None:
+    """Device time of one more default fold by kernel, from torch.profiler."""
+    from dmpfold2_tpu_torch import aln_to_coords
+    from dmpfold2_tpu_torch.config import FoldConfig
+
+    kw = dict(device="cuda", params=params, iterations=ITERATIONS, minsteps=MINSTEPS,
+              config=FoldConfig(precision=precision))
+    emit({"phase": "profile", "precision": precision,
+          **_profiled(lambda: aln_to_coords(EXAMPLE_ALN, **kw))})
 
 
 def phase_cpu(params) -> None:
@@ -2836,8 +3121,8 @@ def phase_trunk(capture) -> None:
     emit({"phase": "trunk", "precision": "bf16", "shape": list(capture[1][0].shape),
           "pass_wall_ms": pass_ms, "pass_device_ms": busy, "device_ms_by_part": parts,
           "launches_per_pass": launches,
-          "share_of_device": {k: v / busy for k, v in parts.items()},
-          "idle_share": 1.0 - busy / pass_ms})
+          "share_of_device": {k: v / busy for k, v in parts.items()} if busy else None,
+          "idle_share": _idle_share(busy, pass_ms)})
 
 
 # bf16 card vs CPU: both run the same bf16 operands, the card through the
@@ -3068,7 +3353,7 @@ def _train_crop(weights, data_dir: str) -> None:
           "loss": metrics["loss"], "step_wall_s": walls,
           "step_wall_s_median": float(np.median(walls)), "peak_memory_gb": peak / 1e9,
           "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
-          "idle_share": 1.0 - busy / wall_ms, "kernel_launches": launches,
+          "idle_share": _idle_share(busy, wall_ms), "kernel_launches": launches,
           "by_category_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
           "top_kernels": sorted(top, key=lambda t: -t["ms"])[:10]})
     if not np.isfinite(metrics["loss"]) or metrics["skipped"]:
@@ -3325,6 +3610,8 @@ def main() -> None:
     paths.update(phase_multi(params))
     seq = phase_seq(params)
     paths.update(seq["paths"])
+    long = phase_long(params)
+    paths["fold bf16 long"] = long["launches"]
     with tempfile.TemporaryDirectory() as eval_dir:
         _write_eval_data(eval_dir, np.random.default_rng(3))
         for precision, counts in phase_evaluate(params, eval_dir).items():
@@ -3349,6 +3636,7 @@ def main() -> None:
             row["batch_shape"] = batch_shapes[name]
         if name in seq["slab"]:
             row["slab"] = seq["slab"][name]
+    rows["vgru"]["long"] = long["vgru"]
     print(info["nvidia_smi"], flush=True)
     emit({"kernels": list(rows.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -57,9 +57,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "computes it, for comparing with a reference run: LU DCA "
                              "inverse, raw eigenvector signs)")
     parser.add_argument("--dca-method", dest="dca_method", type=str, default=None,
-                        choices=["auto", "cholesky", "lu"],
+                        choices=["auto", "cholesky", "lu", "schur", "blocked"],
                         help="DCA covariance inverse: auto (default: lu for fp32_strict, "
-                             "cholesky otherwise), cholesky or lu")
+                             "cholesky otherwise), lu, or cholesky, schur or blocked (the "
+                             "JAX package's names for one route here: a Cholesky inverse, "
+                             "blocked and in place once 21 x the padded length passes 8192, "
+                             "buckets from 416)")
     parser.add_argument("-o", "--out-dir", dest="out_dir", type=str, default=None,
                         help="write <stem>.pdb per input here instead of stdout, through "
                              "the batch engine")

@@ -31,7 +31,8 @@ class FoldConfig:
     weights_file: str | None = None
 
     precision: str = "fp32"
-    dca_method: str = "auto"         # "cholesky" | "lu"; auto: engine.fold.resolve_dca_method
+    dca_method: str = "auto"         # "cholesky" | "lu" | "schur" | "blocked";
+                                     # auto: engine.fold.resolve_dca_method
     use_buckets: bool = True         # single-target engine only; the batch
                                      # engine always buckets (its batches are buckets)
 

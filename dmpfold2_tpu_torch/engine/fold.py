@@ -61,11 +61,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 def resolve_dca_method(setting: str, precision: str) -> str:
-    """The DCA inverse a fold runs: an explicit setting wins; ``"auto"`` is
-    ``"lu"`` for ``fp32_strict`` (the reference's ``torch.inverse`` is an LU
-    inverse, and the Cholesky inverse differs from it at about 1e-6, which
-    recycling can amplify) and ``"cholesky"`` otherwise (half the operations
-    of LU on a positive definite matrix)."""
+    """The DCA inverse a fold runs: an explicit setting (one of
+    ``features.dca.METHODS``) wins; ``"auto"`` is ``"lu"`` for ``fp32_strict``
+    (the reference's ``torch.inverse`` is an LU inverse, and the Cholesky
+    inverse differs from it at about 1e-6, which recycling can amplify) and
+    ``"cholesky"`` otherwise (half the operations of LU on a positive definite
+    matrix; the blocked inverse above ``ops/chol.py:BLOCKED_THRESHOLD``), the
+    JAX package's choice off the TPU."""
     if setting != "auto":
         check_method(setting)
         return setting
@@ -92,16 +94,16 @@ def pair_features(alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor,
     ints), (B, l_pad, l_pad) dmap channels -> (B, l_pad, l_pad, 443) pair
     features [DCA 442 | dmap 1], one target at a time (the (21L)^2 DCA
     inverse of a whole batch at once would need B times the memory; a single
-    sequence gives zero DCA). ``dca_method``: the inverse, ``"cholesky"`` or
-    ``"lu"``."""
+    sequence gives zero DCA), each target's DCA written straight into its
+    slice. ``dca_method`` as :func:`resolve_dca_method` gives it."""
     batch, _, l_pad = alnmat.shape
     x2 = torch.empty((batch, l_pad, l_pad, NUM_DCA_CHANNELS + 1), device=alnmat.device)
     for b in range(batch):
         oh = msa_one_hot(alnmat[b], nseqs[b], nres[b])
         w = reweight(oh, nres[b])
-        x2[b, :, :, :NUM_DCA_CHANNELS] = dca_or_zero(oh, w, nseqs[b], nres[b],
-                                                     method=dca_method)
-        del oh
+        dca_or_zero(oh, w, nseqs[b], nres[b], method=dca_method,
+                    out=x2[b, :, :, :NUM_DCA_CHANNELS])
+        del oh, w
     x2[..., NUM_DCA_CHANNELS] = dmap_channel
     return x2
 

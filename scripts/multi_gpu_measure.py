@@ -3,8 +3,10 @@
 
     python3 scripts/multi_gpu_measure.py [--procs 2] [--targets-per-bucket 32]
     python3 scripts/multi_gpu_measure.py --seq
+    python3 scripts/multi_gpu_measure.py --inverse-ab
 
-Two measurements (or, with ``--seq``, the third alone), each printed as one
+Two measurements (or, with ``--seq`` or ``--inverse-ab``, the third or the
+fourth alone), each printed as one
 JSON line, after the cards' names and power limits (``nvidia-smi
 --query-gpu=name,power.limit``):
 
@@ -28,11 +30,20 @@ JSON line, after the cards' names and power limits (``nvidia-smi
    exact length) over 2 and 4 cards and unsharded, whose failure (out of
    memory) is recorded as its reading. Each: the wall times of 3 folds
    after a warm-up fold (their median and range), and each card's peak
-   memory (``max_memory_allocated``).
+   memory (``max_memory_allocated``). Then, per engine, seeded 64 x 3072,
+   3584 and 4096 targets over 4 cards, one fold each without a warm-up:
+   the longest target that folds.
    Then one bf16 trunk pass at L 1536 over 2 and 4 cards under
    torch.profiler: each card's device time by kind (the halo exchange's
    copies and joins, the norms' reductions, the two trunk kernels, the
    rest).
+4. ``inverse_ab`` (``--inverse-ab``, one card): the bf16 fold of ``seq``'s
+   64 x 2560 target on one card with the DCA inverse past
+   ``ops/chol.py:BLOCKED_THRESHOLD`` blocked (the port's route) and stock
+   (``cholesky_ex`` + ``cholesky_inverse``, the route before the blocked
+   inverse: the threshold raised past n for that turn), in turns blocked,
+   stock, stock, blocked; each turn as a ``seq`` reading (a warm-up fold,
+   3 timed folds, the card's peak memory).
 
 Weights are random (``init_params(seed=0)``). Needs at least ``--procs``
 cards on one machine.
@@ -163,8 +174,11 @@ def measure_train(procs: int) -> dict:
 
 
 SEQ_TARGETS = ((64, 1536), (64, 2560))
+# past L 2560, over four cards only, for the longest target that folds: one
+# fold each, with no warm-up (its wall time includes the set-up of its shapes)
+SEQ_LONGEST = ((64, 3072), (64, 3584), (64, 4096))
 SEQ_RUN = (1, 10)  # iterations, minsteps
-SEQ_REPEATS = 3    # timed folds per configuration
+SEQ_REPEATS = 3    # timed folds per configuration, after a warm-up fold
 # device kernel name fragments -> kind, first match wins
 SEQ_KINDS = (("halo", ("Memcpy", "memcpy", "CatArrayBatchedCopy", "FillFunctor")),
              ("conv5x5_maxout", ("conv5x5_maxout_kernel",)),
@@ -172,8 +186,9 @@ SEQ_KINDS = (("halo", ("Memcpy", "memcpy", "CatArrayBatchedCopy", "FillFunctor")
              ("reduce", ("reduce_kernel",)))
 
 
-def _seq_fold(params, alnmat, precision: str, devices) -> dict:
-    """One warm-up fold and SEQ_REPEATS timed folds of ``alnmat`` on a 1 x n
+def _seq_fold(params, alnmat, precision: str, devices, repeats: int = SEQ_REPEATS,
+              warmup: bool = True) -> dict:
+    """A warm-up fold and ``repeats`` timed folds of ``alnmat`` on a 1 x n
     mesh of ``devices`` (unsharded for one device): their wall times (each,
     the median and the range) and each card's peak memory; an error (out of
     memory) is the reading."""
@@ -190,9 +205,10 @@ def _seq_fold(params, alnmat, precision: str, devices) -> dict:
                   else Folder(params, mesh=make_mesh(1, len(devices), devices=devices),
                               precision=precision))
         run = dict(iterations=SEQ_RUN[0], minsteps=SEQ_RUN[1])
-        folder.fold(alnmat, **run)
+        if warmup:
+            folder.fold(alnmat, **run)
         walls = []
-        for _ in range(SEQ_REPEATS):
+        for _ in range(repeats):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, confs = folder.fold(alnmat, **run)
@@ -263,21 +279,51 @@ def _trunk_profile(params, alnmat, n: int) -> dict:
     return {"cards": n, "wall_ms": wall * 1e3, "by_card_ms": by_card}
 
 
-def measure_seq(params) -> list:
+def _seq_alns() -> dict:
     rng = np.random.default_rng(29)
-    alns = {l: rng.integers(0, 21, (n, l)).astype(np.uint8) for n, l in SEQ_TARGETS}
+    return {l: rng.integers(0, 21, (n, l)).astype(np.uint8)
+            for n, l in SEQ_TARGETS + SEQ_LONGEST}
+
+
+def measure_seq(params) -> list:
+    alns = _seq_alns()
     cards = [f"cuda:{k}" for k in range(4)]
     rows = []
     for precision in ("bf16", "fp32"):
-        for l, counts in ((1536, (1, 2, 4)), (2560, (2, 4, 1))):
-            for n in counts:
-                row = _seq_fold(params, alns[l], precision, cards[:n])
-                rows.append({"measure": "seq", "precision": precision, "shape": list(alns[l].shape),
-                             "iterations": SEQ_RUN[0], "minsteps": SEQ_RUN[1], **row})
-                print(json.dumps(rows[-1]), flush=True)
+        runs = [(l, n, {}) for l, counts in ((1536, (1, 2, 4)), (2560, (2, 4, 1)))
+                for n in counts]
+        runs += [(l, 4, {"repeats": 1, "warmup": False}) for _, l in SEQ_LONGEST]
+        for l, n, kw in runs:
+            row = _seq_fold(params, alns[l], precision, cards[:n], **kw)
+            rows.append({"measure": "seq", "precision": precision, "shape": list(alns[l].shape),
+                         "iterations": SEQ_RUN[0], "minsteps": SEQ_RUN[1],
+                         "warm_up_fold": kw.get("warmup", True), **row})
+            print(json.dumps(rows[-1]), flush=True)
     for n in (2, 4):
         rows.append({"measure": "seq_trunk_profile", "shape": list(alns[1536].shape),
                      **_trunk_profile(params, alns[1536], n)})
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+INVERSE_AB_TURNS = ("blocked", "stock", "stock", "blocked")
+
+
+def measure_inverse_ab(params) -> list:
+    from dmpfold2_tpu_torch.ops import chol
+
+    aln = _seq_alns()[2560]
+    default = chol.BLOCKED_THRESHOLD
+    rows = []
+    for route in INVERSE_AB_TURNS:
+        chol.BLOCKED_THRESHOLD = default if route == "blocked" else 10 ** 9
+        try:
+            row = _seq_fold(params, aln, "bf16", ["cuda:0"])
+        finally:
+            chol.BLOCKED_THRESHOLD = default
+        rows.append({"measure": "inverse_ab", "route": route, "precision": "bf16",
+                     "shape": list(aln.shape), "iterations": SEQ_RUN[0],
+                     "minsteps": SEQ_RUN[1], **row})
         print(json.dumps(rows[-1]), flush=True)
     return rows
 
@@ -286,6 +332,9 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seq", action="store_true",
                     help="only the residue-axis sharding measurement (four cards)")
+    ap.add_argument("--inverse-ab", action="store_true",
+                    help="only the blocked-against-stock DCA inverse in the L 2560 fold "
+                         "(one card)")
     ap.add_argument("--procs", type=int, default=2)
     ap.add_argument("--targets-per-bucket", type=int, default=32)
     ap.add_argument("--rank", type=int, default=None)
@@ -302,7 +351,7 @@ def main() -> None:
                       "--process-id", str(args.rank)])
         print(json.dumps({"rank": args.rank, "epoch_wall_s": wall}), flush=True)
         return
-    need = 4 if args.seq else args.procs
+    need = 4 if args.seq else 1 if args.inverse_ab else args.procs
     if torch.cuda.device_count() < need:
         sys.exit(f"multi_gpu_measure: needs {need} GPUs, found {torch.cuda.device_count()}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -312,11 +361,11 @@ def main() -> None:
 
     _build.build()
     params = init_params(seed=0, width=cs.WIDTH, cwidth=cs.CWIDTH, num_blocks=cs.BLOCKS)
-    if args.seq:
+    if args.seq or args.inverse_ab:
         from dmpfold2_tpu_torch.engine.fold import use_full_fp32
 
         use_full_fp32()
-        measure_seq(params)
+        (measure_seq if args.seq else measure_inverse_ab)(params)
         return
     print(json.dumps(measure_batch(params, args.targets_per_bucket)), flush=True)
     print(json.dumps(measure_train(args.procs)), flush=True)

@@ -62,7 +62,7 @@ def example():
 
 # ---------------------------------------------------------------- DCA method
 
-@pytest.mark.parametrize("setting", ["auto", "cholesky", "lu"])
+@pytest.mark.parametrize("setting", ["auto", "cholesky", "lu", "schur", "blocked"])
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "fp32_strict"])
 def test_resolve_dca_method_matches_jax(setting, precision):
     """JAX's table on its CPU backend (tests/test_io.py:71-89): auto is lu
@@ -94,15 +94,16 @@ def test_fast_dca_lu_matches_jax(example, pad):
     assert np.abs(ours - chol).max() <= 1e-5 * np.abs(chol).max()
 
 
-@pytest.mark.parametrize("method", ["schur", "blocked"])
-def test_tpu_dca_methods_raise(example, params, method):
+def test_unknown_dca_method_raises(example, params):
+    """Every method the JAX package has is taken (tests/test_torch_chol.py);
+    a name it does not have is refused before any work."""
     n, l = example.shape
     (oh, w), _ = _features(example, n, l)
-    for call in (lambda: dca.fast_dca(oh, w, n, l, method=method),
-                 lambda: dca.dca_or_zero(oh, w, n, l, method=method),
-                 lambda: fold.Folder(params, device="cpu", dca_method=method),
-                 lambda: fold.resolve_dca_method(method, "fp32")):
-        with pytest.raises(ValueError, match="TPU's matrix unit.*cuSOLVER"):
+    for call in (lambda: dca.fast_dca(oh, w, n, l, method="qr"),
+                 lambda: dca.dca_or_zero(oh, w, n, l, method="qr"),
+                 lambda: fold.Folder(params, device="cpu", dca_method="qr"),
+                 lambda: fold.resolve_dca_method("qr", "fp32")):
+        with pytest.raises(ValueError, match="unknown DCA method 'qr'"):
             call()
 
 
@@ -326,9 +327,30 @@ def test_cli_batch_mode_carries_precision_and_dca_method(toy_npz, tmp_path, monk
     assert (tmp_path / "out" / "a.pdb").read_text().endswith("END\n")
 
 
-def test_cli_refuses_tpu_dca_methods(toy_npz):
+def test_cli_refuses_unknown_dca_method(toy_npz):
     with pytest.raises(SystemExit):
-        run_dmpfold(["-i", EXAMPLE_ALN, "-d", "cpu", "-w", toy_npz, "--dca-method", "schur"])
+        run_dmpfold(["-i", EXAMPLE_ALN, "-d", "cpu", "-w", toy_npz, "--dca-method", "qr"])
+
+
+@pytest.mark.parametrize("method", ["schur", "blocked"])
+def test_memory_bounded_dca_methods_fold(toy_npz, params, method, capsys):
+    """``--dca-method schur|blocked`` folds PF10963 through the CLI (a held
+    ``Folder``), and the batch engine folds two targets with it."""
+    run_dmpfold(["-i", EXAMPLE_ALN, "-d", "cpu", "-w", toy_npz, "-n", "0", "-m", "2",
+                 "--dca-method", method])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("REMARK  CONF:") and lines[-1] == "END"
+    assert sum(line.startswith("ATOM") for line in lines) == 406
+    bf = stream.BatchFolder(params, device="cpu", batch_size=2, dca_method=method)
+    try:
+        assert bf.folder.dca_method == method
+        rng = np.random.default_rng(1)
+        targets = [stream.Target(rng.integers(0, 22, s).astype(np.uint8))
+                   for s in ((8, 20), (12, 25))]
+        for coords, confs in bf.fold_many(targets, iterations=0, minsteps=1):
+            assert np.isfinite(coords).all() and np.isfinite(confs).all()
+    finally:
+        bf.close()
 
 
 def test_service_folds_in_strict(params, monkeypatch):
