@@ -18,9 +18,19 @@ Phases, each printing one JSON line:
    and 1536 and as a ragged batch of 4), each launched twice for the same
    bits, with the tolerance stated; device times from torch.profiler or CUDA
    events after warm-up.
+3b. mds    -- the bf16 engine's MDS, the top-8 eigenpairs by subspace
+   iteration (``ops/eigh.py``), on realistic Grams at B 1 L 88, B 1 L 736
+   and B 8 L 256 (per-target nres): the card against the port's CPU run
+   within 1e-4 of each target's coordinate scale, against ``eigh`` on the
+   card within 2e-3, each target of the B 8 call against its map alone
+   within 1e-4, padded rows exactly zero; each MDS call's time, device
+   launches and host syncs for ``eigh`` and the subspace; PF10963's bf16
+   fold on a held ``Folder`` with each MDS in turns, the MDS share of its
+   wall time and its host syncs. See ``phase_mds``.
 4. fold    -- ``aln_to_coords`` on PF10963 at full width (512/128/16, random
    weights from seed 0) with the defaults ``-n 10 -m 100`` on ``cuda``, once
-   per engine (fp32, then bf16): a warm-up fold, then the timed fold with
+   per engine (fp32, then bf16, whose MDS is the subspace iteration): a
+   warm-up fold, then the timed fold with
    every launch counter set to 0 just before it and read just after, and
    four more timed folds for the spread of the wall time, and five on a
    held ``Folder`` (parameters uploaded once, the serving case). Checks
@@ -100,8 +110,9 @@ Phases, each printing one JSON line:
    most 2.5 (21 x 736)^2 fp32 matrices, each method's time and peak; the
    inverse alone, blocked against the stock Cholesky inverse; (b) the blocked
    features of a seeded 256 x 416 alignment (n 8736) card vs CPU within
-   1e-4; (c) vgru at 3000 x 736 and the fold's other kernels at L 736
-   against their plain versions, then one fold through ``Folder`` after a
+   1e-4; (c) vgru at 3000 x 736 (and ``torch.nn.GRU(22, 512,
+   num_layers=2)``, its library call, there) and the fold's other kernels at
+   L 736 against their plain versions, then one fold through ``Folder`` after a
    warm-up: launches (path "fold bf16 long"), a whole PDB, the wall time and
    the model FLOP utilization. See ``phase_long``.
 8b. evaluate -- ``train/evaluate.py`` on eight seeded validation targets in
@@ -307,6 +318,20 @@ def _chain(n: int, rng) -> np.ndarray:
     return np.cumsum(steps, axis=0).astype(np.float32)
 
 
+def _vgru_library(layers, aln: torch.Tensor):
+    """The library call that computes vgru's function at a uniform depth:
+    ``torch.nn.GRU(22, 512, num_layers=2)`` (cuDNN) with vgru's weights, and
+    the one-hot of ``aln``'s rows, its input."""
+    gru_lib = torch.nn.GRU(22, WIDTH, num_layers=2).to(aln.device)
+    with torch.no_grad():
+        for i, p in enumerate(layers):
+            getattr(gru_lib, f"weight_ih_l{i}").copy_(p["wi"].T)
+            getattr(gru_lib, f"weight_hh_l{i}").copy_(p["wh"].T)
+            getattr(gru_lib, f"bias_ih_l{i}").copy_(p["bi"])
+            getattr(gru_lib, f"bias_hh_l{i}").copy_(p["bh"])
+    return gru_lib, torch.nn.functional.one_hot(aln.long(), 22).float()
+
+
 def phase_kernels(params) -> dict:
     """Each kernel against its plain version on the card; returns per-kernel rows."""
     from dmpfold2_tpu_torch.engine.fold import use_full_fp32
@@ -341,14 +366,8 @@ def phase_kernels(params) -> dict:
     ms = device_ms(lambda: vgru.vgru_final_cols(layers, aln, uniform), "vgru_kernel", reps=10)
     call_ms = time_ms(lambda: vgru.vgru_final_cols(layers, aln, uniform), reps=10)
     plain_ms = time_ms(lambda: vgru.vgru_final_cols_plain(layers, aln, uniform), reps=2, warmup=1)
-    gru_lib = torch.nn.GRU(22, WIDTH, num_layers=2).to(dev)
+    gru_lib, onehot = _vgru_library(layers, aln[:NSEQS])
     with torch.no_grad():
-        for i, p in enumerate(layers):
-            getattr(gru_lib, f"weight_ih_l{i}").copy_(p["wi"].T)
-            getattr(gru_lib, f"weight_hh_l{i}").copy_(p["wh"].T)
-            getattr(gru_lib, f"bias_ih_l{i}").copy_(p["bi"])
-            getattr(gru_lib, f"bias_hh_l{i}").copy_(p["bh"])
-        onehot = torch.nn.functional.one_hot(aln[:NSEQS].long(), 22).float()
         lib_out = gru_lib(onehot)[1][-1]
         lib_err = (lib_out - vgru.vgru_final_cols(layers, aln, uniform)).abs().max().item()
         library_ms = time_ms(lambda: gru_lib(onehot), reps=10)
@@ -1327,21 +1346,17 @@ def _batch_kernel_shapes(params, rng) -> dict:
     return out
 
 
-def _host_syncs(bf, batch) -> list:
-    """The host synchronisations of one batch's fold (upload, forward,
-    fetch), on this thread, from torch's sync debug mode: each caller's
-    file:line in the port with its count."""
+def _sync_sites(fn) -> list:
+    """The host synchronisations of ``fn()`` on this thread, from torch's
+    sync debug mode: each caller's file:line in the port with its count."""
     import warnings
 
-    from dmpfold2_tpu_torch.parallel import stream
-
-    aln_b, dmap_b, nseqs, nres = stream._pad_batch(batch, *BATCH_BUCKETS[0])
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            stream._fold_batch(bf.folder, aln_b, dmap_b, nseqs, nres, ITERATIONS, MINSTEPS)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     counts: dict = {}
@@ -1350,6 +1365,16 @@ def _host_syncs(bf, batch) -> list:
             where = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
             counts[where] = counts.get(where, 0) + 1
     return [{"where": k, "count": v} for k, v in sorted(counts.items(), key=lambda kv: -kv[1])]
+
+
+def _host_syncs(bf, batch) -> list:
+    """The host synchronisations of one batch's fold (upload, forward,
+    fetch): :func:`_sync_sites`."""
+    from dmpfold2_tpu_torch.parallel import stream
+
+    aln_b, dmap_b, nseqs, nres = stream._pad_batch(batch, *BATCH_BUCKETS[0])
+    return _sync_sites(lambda: stream._fold_batch(bf.folder, aln_b, dmap_b, nseqs, nres,
+                                                  ITERATIONS, MINSTEPS))
 
 
 def phase_batch(params, precision: str) -> dict:
@@ -1493,8 +1518,8 @@ def _mds_calls(store: list):
 
     orig = gruresnet.mds_coords
 
-    def recording(dm, nres, n_dims=8, canonical_signs=True):
-        out = orig(dm, nres, n_dims, canonical_signs=canonical_signs)
+    def recording(dm, nres, n_dims=8, canonical_signs=True, **kw):
+        out = orig(dm, nres, n_dims, canonical_signs=canonical_signs, **kw)
         store.append((dm.clone(), nres.clone(), canonical_signs, out.clone()))
         return out
 
@@ -2709,6 +2734,153 @@ def phase_seq(params) -> dict:
                                       "train bf16 seq": train_launches}}
 
 
+# ---------------------------------------------------------------- mds
+#
+# Phase mds: the bf16 engine's MDS, the top-8 eigenpairs by subspace
+# iteration (ops/eigh.py), on realistic Grams: distance maps of points in 8
+# dimensions at scales geomspace(8, 1), as tests/test_subspace_eigh.py builds
+# them, at the fold's bucket (B 1, L 88), the long fold's (B 1, L 736) and
+# the batch engine's (B 8, L 256, nres 241-256). Bounds, each of a target's
+# coordinate scale (the largest |coordinate| of its eigh MDS): the card
+# against the port's CPU run (the same start basis) MDS_CPU_TOL; against
+# eigh on the card MDS_EIGH_TOL, JAX's own bound
+# (tests/test_subspace_eigh.py:83); each target of the batch against its map
+# alone MDS_ALONE_TOL; padded rows exactly zero. Recorded: each call's time
+# (CUDA events), device launches (torch.profiler) and host syncs (torch's
+# sync debug mode) for eigh and the subspace; then the bf16 fold of PF10963
+# on a held Folder with each MDS in turns (subspace, eigh, eigh, subspace):
+# its wall time, the MDS calls' share of it (CUDA events around each call)
+# and its host syncs.
+MDS_CASES = ((L_PAD, (NRES,)), (736, (720,)), (256, (256, 253, 250, 247, 245, 244, 242, 241)))
+MDS_CPU_TOL, MDS_EIGH_TOL, MDS_ALONE_TOL = 1e-4, 2e-3, 1e-4
+MDS_TIMED = 20
+
+
+def _mds_maps(l_pad: int, nres, rng) -> torch.Tensor:
+    dm = np.zeros((len(nres), l_pad, l_pad), np.float32)
+    for b, n in enumerate(nres):
+        pts = rng.normal(size=(n, 8)) * np.geomspace(8.0, 1.0, 8)
+        dm[b, :n, :n] = np.linalg.norm(pts[:, None] - pts[None, :], axis=-1)
+    return torch.from_numpy(dm)
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor, scale: torch.Tensor) -> float:
+    """The largest over targets of max |got - ref| over that target's scale."""
+    return ((got - ref).abs().amax(dim=(-2, -1)) / scale).max().item()
+
+
+@contextlib.contextmanager
+def _mds_timing(store: list):
+    """CUDA events around every MDS call of the inference forward; after a
+    synchronise, ``store`` holds each call's milliseconds on the stream."""
+    from dmpfold2_tpu_torch.models import gruresnet
+
+    orig, events = gruresnet.mds_coords, []
+
+    def timed(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    gruresnet.mds_coords = timed
+    try:
+        yield
+    finally:
+        gruresnet.mds_coords = orig
+        torch.cuda.synchronize()
+        store.extend(s.elapsed_time(e) for s, e in events)
+
+
+def _mds_fold_turns(params) -> dict:
+    """PF10963's bf16 fold at the defaults on a held Folder with the subspace
+    MDS and with eigh (the engine's choice patched), in turns."""
+    from dmpfold2_tpu_torch.engine import fold
+    from dmpfold2_tpu_torch.utils.aln import parse_aln
+
+    alnmat = parse_aln(EXAMPLE_ALN)
+    folder = fold.Folder(params, device="cuda", precision="bf16")
+    orig = fold.resolve_mds_impl
+    turns = []
+    try:
+        for impl in ("subspace", "eigh", "eigh", "subspace"):
+            fold.resolve_mds_impl = lambda precision, impl=impl: impl
+            run = lambda: folder.fold(alnmat, iterations=ITERATIONS, minsteps=MINSTEPS)  # noqa: E731
+            run()  # warm-up
+            walls, mds_ms = [], []
+            for _ in range(FOLD_REPEATS):
+                calls: list = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with _mds_timing(calls):
+                    run()
+                walls.append(time.perf_counter() - t0)
+                mds_ms.append(sum(calls))
+            turns.append({"mds": impl, "wall_s_median": float(np.median(walls)),
+                          "wall_s_all": walls, "mds_calls": len(calls),
+                          "mds_ms_median": float(np.median(mds_ms)),
+                          "mds_share": float(np.median(mds_ms)) / 1e3 / float(np.median(walls)),
+                          "host_syncs": _sync_sites(run)})
+    finally:
+        fold.resolve_mds_impl = orig
+    return {"turns": turns}
+
+
+def phase_mds(params) -> None:
+    from dmpfold2_tpu_torch.engine.fold import use_full_fp32
+    from dmpfold2_tpu_torch.models.geometry import mds_coords
+
+    use_full_fp32()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    rows, failed = [], []
+    for l_pad, nres in MDS_CASES:
+        dm_cpu, nr_cpu = _mds_maps(l_pad, nres, rng), torch.tensor(nres, dtype=torch.int32)
+        dm, nr = dm_cpu.cuda(), nr_cpu.cuda()
+        sub = mds_coords(dm, nr, impl="subspace")
+        eig = mds_coords(dm, nr, impl="eigh")
+        cpu = mds_coords(dm_cpu, nr_cpu, impl="subspace").cuda()
+        scale = eig.abs().amax(dim=(-2, -1))
+        row = {"batch": len(nres), "l_pad": l_pad, "nres": list(nres),
+               "coord_scale": scale.tolist(),
+               "card_vs_cpu": _rel_err(sub, cpu, scale), "card_vs_cpu_tol": MDS_CPU_TOL,
+               "subspace_vs_eigh": _rel_err(sub, eig, scale), "subspace_vs_eigh_tol": MDS_EIGH_TOL,
+               "padding_zero": all(bool((sub[b, n:] == 0).all()) for b, n in enumerate(nres)),
+               "finite": bool(torch.isfinite(sub).all())}
+        # recorded: which of the card's two MDS is nearer the CPU's
+        cpu_eig = mds_coords(dm_cpu, nr_cpu, impl="eigh").cuda()
+        row["eigh_card_vs_cpu"] = _rel_err(eig, cpu_eig, scale)
+        row["subspace_vs_eigh_cpu"] = _rel_err(cpu, cpu_eig, scale)
+        checks = {"card_vs_cpu": row["card_vs_cpu"] <= MDS_CPU_TOL,
+                  "subspace_vs_eigh": row["subspace_vs_eigh"] <= MDS_EIGH_TOL,
+                  "padding_zero": row["padding_zero"], "finite": row["finite"]}
+        if len(nres) > 1:
+            alone = torch.cat([mds_coords(dm[b:b + 1], nr[b:b + 1], impl="subspace")
+                               for b in range(len(nres))])
+            row["batch_vs_alone"] = _rel_err(sub, alone, scale)
+            row["batch_vs_alone_tol"] = MDS_ALONE_TOL
+            row["batch_vs_alone_same_bits"] = bool(torch.equal(sub, alone))
+            checks["batch_vs_alone"] = row["batch_vs_alone"] <= MDS_ALONE_TOL
+        for impl in ("eigh", "subspace"):
+            call = lambda impl=impl: mds_coords(dm, nr, impl=impl)  # noqa: E731
+            row[f"{impl}_ms"] = time_ms(call, reps=MDS_TIMED)
+            prof = _profiled(call)
+            row[f"{impl}_device_ms"] = prof["device_busy_ms"]
+            row[f"{impl}_launches"] = prof["kernel_launches"]
+            row[f"{impl}_top_kernels"] = prof["top_kernels"][:6]
+            row[f"{impl}_host_syncs"] = _sync_sites(call)
+        row["checks"] = checks
+        failed += [f"B {len(nres)} L {l_pad}: {k}" for k, ok in checks.items() if not ok]
+        rows.append(row)
+    fold_turns = _mds_fold_turns(params)
+    emit({"phase": "mds", "cases": rows, "fold_bf16": fold_turns,
+          "phase_s": time.perf_counter() - t_phase, "failed": failed})
+    if failed:
+        raise AssertionError(f"mds checks failed: {failed}")
+
+
 # ---------------------------------------------------------------- long
 #
 # Phase long: the long target of BASELINE.json config 4 ("nres >= 700, deep
@@ -2854,9 +3026,16 @@ def _long_vgru(params, alnmat) -> dict:
     # nothing beside it (the profiler once saw none of these launches after
     # the earlier phases, and device_ms raised)
     ms = time_ms(lambda: vgru.vgru_final_cols(layers, cols, valid), reps=3, warmup=1)
+    gru_lib, onehot = _vgru_library(layers, cols)
+    with torch.no_grad():
+        lib_err = (gru_lib(onehot)[1][-1] - out).abs().max().item()
+        library_ms = time_ms(lambda: gru_lib(onehot), reps=3, warmup=1)
+    del gru_lib, onehot
     b, by = _vgru_bound(cols, valid)
     return {"shape": [*cols.shape, WIDTH], "max_abs_err": err, "tol": GRU_TOL, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": library_ms,
+            "library": f"torch.nn.GRU(22, 512, num_layers=2) on {cols.shape[0]} rows x "
+                       f"{cols.shape[1]} columns", "library_max_abs_err": lib_err,
             "ok": err <= GRU_TOL}
 
 
@@ -3595,6 +3774,7 @@ def main() -> None:
     phase_build()
     params = init_params(seed=0, width=WIDTH, cwidth=CWIDTH, num_blocks=BLOCKS)
     rows = phase_kernels(params)
+    phase_mds(params)
     launches = {precision: phase_fold(params, precision)[0] for precision in ("fp32", "bf16")}
     for precision in ("fp32", "bf16"):
         phase_profile(params, precision)

@@ -88,6 +88,15 @@ def use_full_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def resolve_mds_impl(precision: str) -> str:
+    """The MDS of an engine: the top-8 eigenpairs by subspace iteration in
+    bf16, the full ``eigh`` in ``fp32`` and ``fp32_strict`` (the reference
+    computes a full symeig, network.py:247). JAX's ``resolve_mds_impl``
+    without its backend test: an engine computes the same function on the
+    card and on the CPU."""
+    return "subspace" if precision == "bf16" else "eigh"
+
+
 def pair_features(alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor,
                   dca_method: str = "cholesky") -> torch.Tensor:
     """(B, n_pad, l_pad) int32 alignments, per-target sizes (sequences of
@@ -116,9 +125,10 @@ def fold_padded_batch(params, alnmat: torch.Tensor, nseqs, nres, dmap_channel: t
     (coords (B, l_pad, 5, 3), confidences (B, l_pad), recycles run).
     ``params`` as ``gruresnet.pack_params`` gives them for ``precision``;
     ``dca_method`` as :func:`resolve_dca_method` gives it. ``fp32_strict``
-    keeps the raw eigenvector signs. ``seq_row``: (device, trunk parameters
-    there) for each device of a mesh row whose first device holds
-    ``alnmat`` and ``params``: the trunk split by rows over them."""
+    keeps the raw eigenvector signs; the MDS is :func:`resolve_mds_impl`'s.
+    ``seq_row``: (device, trunk parameters there) for each device of a mesh
+    row whose first device holds ``alnmat`` and ``params``: the trunk split
+    by rows over them."""
     x2 = pair_features(alnmat, nseqs, nres, dmap_channel, dca_method)
     seq = None
     if seq_row is not None:
@@ -127,7 +137,8 @@ def fold_padded_batch(params, alnmat: torch.Tensor, nseqs, nres, dmap_channel: t
     return gruresnet.forward_inference(params, alnmat, x2, nseqs, nres, nloops, refine_steps,
                                        adaptive_recycle=adaptive,
                                        adaptive_patience=AUTO_PATIENCE, precision=precision,
-                                       canonical_signs=precision != "fp32_strict", seq=seq)
+                                       canonical_signs=precision != "fp32_strict",
+                                       mds_impl=resolve_mds_impl(precision), seq=seq)
 
 
 def fold_padded(params, alnmat: torch.Tensor, nseqs: int, nres: int,
@@ -234,9 +245,10 @@ class Folder:
 
         This does not return before the device has run most of the fold:
         ``torch.linalg.eigh`` waits for its status on the host once per trunk
-        pass, and ``"auto"`` also reads each recycle's confidence to decide
-        whether to go on. To keep a thread free, fold through
-        ``parallel.stream.BatchFolder``, whose workers run the batches.
+        pass (the full MDS in fp32, the q x q Rayleigh-Ritz step of the
+        subspace MDS in bf16), and ``"auto"`` also reads each recycle's
+        confidence to decide whether to go on. To keep a thread free, fold
+        through ``parallel.stream.BatchFolder``, whose workers run the batches.
         """
         adaptive = iterations == "auto"
         nloops = AUTO_ITERATIONS_CAP if adaptive else max(int(iterations), 0)

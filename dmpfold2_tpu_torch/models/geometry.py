@@ -1,8 +1,9 @@
 """Geometry: MDS coordinate seeding, CA-trace refinement, backbone completion.
 
-Counterpart of ``dmpfold2_tpu/models/geometry.py`` (the eigh branch of
-``mds_coords``, the plain ``refine_coords``, ``calpha_to_main_chain``). All
-functions are mask-aware: positions at or past ``nres`` are padding.
+Counterpart of ``dmpfold2_tpu/models/geometry.py`` (``mds_coords`` with its
+``eigh`` and ``subspace`` branches, the plain ``refine_coords``,
+``calpha_to_main_chain``). All functions are mask-aware: positions at or
+past ``nres`` are padding.
 """
 
 from __future__ import annotations
@@ -11,11 +12,17 @@ import math
 
 import torch
 
+from ..ops.eigh import subspace_topk
+
 VDW_DIST = 3.0
 COV_DIST = 3.78
 K_VDW = 100.0
 K_COV = 100.0
 STEP_SIZE = 0.001
+# below this map size a q = 32 basis cannot give 8 full eigenpairs without
+# shrinking, so mds_coords(impl="subspace") runs eigh there (JAX's gate;
+# tests set it to 0 to run the subspace path at toy sizes)
+SUBSPACE_MIN_L = 32
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -24,45 +31,70 @@ def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / n
 
 
-def mds_gram(dm: torch.Tensor, nres) -> torch.Tensor:
-    """The Gram matrix MDS decomposes: distance-map channel (..., L, L) ->
-    (..., L, L). Symmetrize, abs, Gram matrix from the first row/column.
-    Padded rows/columns (at or past ``nres``, an int or a tensor of the
-    leading shape) are zeroed and given distinct very negative diagonal
-    entries, so the valid block's spectrum is kept and the padding
-    eigenpairs sink below it."""
+def zeroed_gram(dm: torch.Tensor, nres) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Gram matrix MDS decomposes, with padding zeroed: distance-map
+    channel (..., L, L) -> ((..., L, L) Gram, (..., L) bool valid columns).
+    Symmetrize, abs, Gram matrix from the first row/column; rows/columns at
+    or past ``nres`` (an int or a tensor of the leading shape) are zero."""
     l_pad = dm.shape[-1]
     dm = (0.5 * (dm + dm.transpose(-1, -2))).abs()
     gram = 0.5 * (dm[..., 0:1, :].square() + dm[..., :, 0:1].square() - dm.square())
-    idx = torch.arange(l_pad, device=dm.device)
-    col = idx < torch.as_tensor(nres, device=dm.device)[..., None]                # (..., L)
-    gram = gram * (col[..., :, None] & col[..., None, :])
+    col = torch.arange(l_pad, device=dm.device) < torch.as_tensor(nres, device=dm.device)[..., None]
+    return gram * (col[..., :, None] & col[..., None, :]), col
+
+
+def mds_gram(dm: torch.Tensor, nres) -> torch.Tensor:
+    """The Gram matrix ``eigh`` decomposes: :func:`zeroed_gram` with distinct
+    very negative diagonal entries on the padded coordinates, so the valid
+    block's spectrum is kept and the padding eigenpairs sink below it."""
+    gram, col = zeroed_gram(dm, nres)
+    idx = torch.arange(dm.shape[-1], device=dm.device)
     pad_diag = torch.where(col, torch.zeros((), device=dm.device),
                            -(1e6 + idx.to(dm.dtype)))
     return gram + torch.diag_embed(pad_diag)
 
 
 def mds_coords(dm: torch.Tensor, nres, n_dims: int = 8,
-               canonical_signs: bool = True) -> torch.Tensor:
+               canonical_signs: bool = True, impl: str = "eigh") -> torch.Tensor:
     """Distance-map channel (..., L, L) -> top-``n_dims`` MDS embedding (..., L, n_dims).
 
     ``nres``: an int, or a tensor of the leading (batch) shape: each map's
-    true length. ``eigh`` of :func:`mds_gram` (one call for the whole
-    batch), the largest eigenpairs.
+    true length. ``impl="eigh"``: ``eigh`` of :func:`mds_gram` (one call for
+    the whole batch), the largest eigenpairs. ``impl="subspace"``: the top
+    ``n_dims`` eigenpairs of :func:`zeroed_gram` by subspace iteration
+    (``ops/eigh.py``), the bf16 engine's choice (inference only); below
+    ``SUBSPACE_MIN_L`` it runs ``eigh``, with its bits.
 
     ``canonical_signs``: make the eigenvector signs canonical
     (largest-|component| positive), so LAPACK and cuSOLVER, and a batch and a
     single map, agree. ``False`` keeps the raw signs of ``eigh``, as the
     reference does (network.py:247): the ``fp32_strict`` engine's choice.
     """
-    gram = mds_gram(dm, nres)
+    if impl not in ("eigh", "subspace"):
+        raise ValueError(f"unknown MDS impl {impl!r}: eigh or subspace")
+    if impl == "subspace" and dm.shape[-1] < SUBSPACE_MIN_L:
+        impl = "eigh"
+    if impl == "subspace":
+        # no diagonal shift: one product with the zeroed Gram removes the
+        # start basis' padding components, and squaring a -1e6 diagonal
+        # would swamp the iteration. A valid block with fewer than n_dims
+        # positive eigenvalues (nres < ~10) can let padding's exact-zero
+        # eigenpairs take trailing slots; the clamp below keeps them at
+        # sqrt(1e-8) scale (JAX geometry.py:75-95)
+        gram, _ = zeroed_gram(dm, nres)
+    else:
+        gram = mds_gram(dm, nres)
     # a non-finite map (a training step on NaN inputs, which the step's guard
     # then skips) gives NaN coordinates for its target, as XLA's eigh does;
     # torch's eigh would raise on the CPU instead, so it is handed zeros
     finite = torch.isfinite(gram).all(dim=-1).all(dim=-1)[..., None, None]
-    w, v = torch.linalg.eigh(torch.where(finite, gram, 0.0))
-    w8 = w[..., -n_dims:].clamp(min=1e-8)
-    v8 = v[..., -n_dims:]
+    gram = torch.where(finite, gram, 0.0)
+    if impl == "subspace":
+        w8, v8 = subspace_topk(gram, k=n_dims)
+    else:
+        w, v = torch.linalg.eigh(gram)
+        w8, v8 = w[..., -n_dims:], v[..., -n_dims:]
+    w8 = w8.clamp(min=1e-8)
     if canonical_signs:
         comp = v8.gather(-2, v8.abs().argmax(dim=-2, keepdim=True))               # (..., 1, n)
         v8 = v8 * torch.where(comp < 0, -1.0, 1.0)

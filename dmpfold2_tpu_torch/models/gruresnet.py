@@ -116,7 +116,7 @@ def pack_params(params, precision: str):
 def forward(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs: int, nres: int,
             nloops: int, refine_steps: int, *, adaptive_recycle: bool = False,
             adaptive_patience: int = 2, precision: str = "fp32",
-            canonical_signs: bool = True):
+            canonical_signs: bool = True, mds_impl: str = "eigh"):
     """Run the network on one target: :func:`forward_inference` at B 1.
 
     Args:
@@ -131,14 +131,14 @@ def forward(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs: int, nres: in
     coords, confs, iterations = forward_inference(
         params, alnmat[None], x2[None], [nseqs], [nres], nloops, refine_steps,
         adaptive_recycle=adaptive_recycle, adaptive_patience=adaptive_patience,
-        precision=precision, canonical_signs=canonical_signs)
+        precision=precision, canonical_signs=canonical_signs, mds_impl=mds_impl)
     return coords[0], confs[0], iterations
 
 
 def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
                       nloops: int, refine_steps: int, *, adaptive_recycle: bool = False,
                       adaptive_patience: int = 2, precision: str = "fp32",
-                      canonical_signs: bool = True, seq=None):
+                      canonical_signs: bool = True, mds_impl: str = "eigh", seq=None):
     """Run the network on a batch of targets of one bucket, for inference.
 
     The counterpart of the JAX ``forward_batched`` (:247-375) as the batch
@@ -163,6 +163,8 @@ def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nre
       canonical_signs: MDS eigenvector signs made canonical
           (``geometry.mds_coords``); ``False`` keeps the raw signs of
           ``eigh`` (``fp32_strict``).
+      mds_impl: ``"eigh"`` or ``"subspace"``, the top-8 eigenpairs by
+          subspace iteration (``geometry.mds_coords``; the bf16 engine's).
       seq: a ``parallel.sharding.SeqShards`` over l_pad whose leader holds
           ``alnmat``: the trunk split by rows over its devices; then
           ``params["trunk"]`` is a list, the trunk on each shard's device.
@@ -200,7 +202,7 @@ def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nre
         out = trunk_pass(dmap_channel)
         dm = out[..., 0]
         conf = (out[..., 1] * row_mask[:, None, :]).sum(dim=2) / nres_f[:, None]
-        mds = mds_coords(dm, nres_t, canonical_signs=canonical_signs)               # (B, L, 8)
+        mds = mds_coords(dm, nres_t, canonical_signs=canonical_signs, impl=mds_impl)  # (B, L, 8)
         coordembed = torch.cat([mat1d, mds], dim=2).transpose(0, 1)                  # (L, B, 520)
         gru_out = rgru.bigru_stack(params["coord_gru"], coordembed, nres_t).transpose(0, 1)
         return gru_out @ params["coord_fc"], conf                             # (B, L, 3), (B, L)
@@ -368,6 +370,7 @@ def forward_batched(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nres,
         out = run_trunk(dmap_channel, trunk_seed)
         dm = out[..., 0]
         conf = (out[..., 1] * row_mask[:, None, :]).sum(dim=2) / nres_f[:, None]
+        # eigh: the subspace MDS is inference-only (JAX's has no VJP)
         mds = torch.stack([mds_coords(dm[b], nres_l[b]) for b in range(batch)])    # (B, L, 8)
         coordembed = torch.cat([mat1d, mds], dim=2).transpose(0, 1)
         gru_out = gru.bigru_stack(params["coord_gru"], coordembed, nres_t,

@@ -9,7 +9,8 @@ Counterpart of ``dmpfold2_tpu/parallel/stream.py``:
     size) and the copies are dropped on the way out,
   * each batch runs the natively batched forward
     (``engine.fold.fold_padded_batch``): one launch of each kernel serves the
-    whole batch, with per-target ``nseqs`` and ``nres``,
+    whole batch, with per-target ``nseqs`` and ``nres``, and the engine's MDS
+    (``engine.fold.resolve_mds_impl``: subspace iteration in bf16),
   * results come back in input order.
 
 Data parallelism (``mesh``, ``parallel/mesh.py``): the batch size is a
@@ -124,10 +125,12 @@ def _load_linalg(device: torch.device) -> None:
     """torch loads its CUDA linear-algebra library at the first linalg call,
     and when two threads make that first call at once one of them fails
     ("lazy wrapper should be called at most once"): make it here, once per
-    device, before any worker runs."""
+    device, before any worker runs, with each call the folds make (``eigh``
+    and the subspace MDS's ``qr``)."""
     with _linalg_lock:
         if device not in _linalg_ready:
             torch.linalg.eigh(torch.eye(2, device=device))
+            torch.linalg.qr(torch.eye(2, device=device))
             _linalg_ready.add(device)
 
 

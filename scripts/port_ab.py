@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of the PyTorch port (``dmpfold2_tpu_torch``) on one GPU.
 
-    python3 scripts/port_ab.py OTHER_TREE [THIS_TREE]
+    python3 scripts/port_ab.py OTHER_TREE [THIS_TREE] [--paths [--out FILE]]
 
 Runs the trees in turns A, B, B, A (A = OTHER_TREE, B = THIS_TREE, default the
 checkout holding this script), each turn a process that imports the
@@ -25,6 +25,12 @@ package from its tree, builds that tree's kernels into its own
   timed folds, exact launch counts) and their device time by category
   (``chip_smoke.phase_profile``).
 
+With ``--paths`` a turn measures the bf16 inference paths end to end
+instead (a change that moves no kernel but what runs between them):
+``chip_smoke``'s phases fold and profile in bf16, batch in bf16, serve and
+long, each with its own checks and launch counts; ``--out`` appends each
+turn's full JSON lines to a file.
+
 Inputs are made from fixed seeds, so every turn sees the same data. The
 measuring code is this checkout's ``chip_smoke.py``; only the package under
 test changes between turns. Then one summary line with each tree's values
@@ -45,16 +51,68 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def measure(tree: str) -> dict:
-    """One turn: every number above for the package in ``tree``."""
+def _chip_smoke(tree: str):
+    """This checkout's chip_smoke module, running ``tree``'s package (imported
+    first: chip_smoke puts its own checkout at the head of the path)."""
     sys.path.insert(0, tree)
-    import numpy as np
-    import torch
-
+    importlib.import_module("dmpfold2_tpu_torch")
     path = os.path.join(HERE, "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def _phase_lines(fn) -> dict:
+    """phase name -> the JSON line each phase ``fn()`` runs prints."""
+    lines = io.StringIO()
+    with contextlib.redirect_stdout(lines):
+        fn()
+    rows = (json.loads(line) for line in lines.getvalue().splitlines() if line.startswith("{"))
+    return {row["phase"]: row for row in rows if "phase" in row}
+
+
+def measure_paths(tree: str) -> dict:
+    """One ``--paths`` turn: the bf16 fold, batch, serve and long phases."""
+    cs = _chip_smoke(tree)
+    from dmpfold2_tpu_torch.kernels import _build, vgru
+    from dmpfold2_tpu_torch.models.gruresnet import init_params
+
+    assert os.path.dirname(os.path.dirname(vgru.__file__)).startswith(os.path.abspath(tree))
+    _build.build()
+    params = init_params(seed=0, width=cs.WIDTH, cwidth=cs.CWIDTH, num_blocks=cs.BLOCKS)
+
+    def run():
+        cs.phase_fold(params, "bf16")
+        cs.phase_profile(params, "bf16")
+        cs.phase_batch(params, "bf16")
+        cs.phase_serve(params)
+        cs.phase_long(params)
+
+    phases = _phase_lines(run)
+    fold, prof, batch = phases["fold"], phases["profile"], phases["batch"]
+    serve, long = phases["serve"], phases["long"]
+    return {"tree": tree, "phases": phases, "summary": {
+        "fold_wall_s_median": fold["wall_s_median"],
+        "fold_held_wall_s_median": fold["held_folder_wall_s_median"],
+        "fold_device_busy_ms": prof["device_busy_ms"],
+        "fold_linalg_ms": prof["by_category_ms"].get("linalg", 0.0),
+        "batch_targets_per_s": batch["targets_per_s"],
+        "batch_256_linalg_ms": batch["profile_one_batch"]["by_category_ms"].get("linalg", 0.0),
+        "batch_256_busy_ms": batch["profile_one_batch"]["device_busy_ms"],
+        "serve_pf_req_per_s": serve["rounds"]["PF10963 x 16"]["req_per_s"],
+        "serve_mixed_req_per_s": serve["rounds"]["mixed x 16"]["req_per_s"],
+        "long_wall_s": long["wall_s"],
+        "long_linalg_ms": long["profile"]["by_category_ms"].get("linalg", 0.0),
+        "long_device_busy_ms": long["profile"]["device_busy_ms"]}}
+
+
+def measure(tree: str) -> dict:
+    """One turn: every number above for the package in ``tree``."""
+    cs = _chip_smoke(tree)
+    import numpy as np
+    import torch
+
     from dmpfold2_tpu_torch.engine.fold import use_full_fp32
     from dmpfold2_tpu_torch.kernels import _build, conv_block, refine, rgru, vgru
     from dmpfold2_tpu_torch.models.gruresnet import init_params
@@ -148,10 +206,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other")
     ap.add_argument("this", nargs="?", default=HERE)
+    ap.add_argument("--paths", action="store_true",
+                    help="measure the bf16 inference paths instead of the kernels")
+    ap.add_argument("--out", help="with --paths, append each turn's full JSON line to this file")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # a child process: measure one tree
     args = ap.parse_args()
     if args.turn:
-        print(json.dumps(measure(args.turn)), flush=True)
+        print(json.dumps((measure_paths if args.paths else measure)(args.turn)), flush=True)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -159,15 +220,28 @@ def main() -> None:
     turns = []
     for label in "ABBA":
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), args.other,
-                               "--turn", trees[label]], capture_output=True, text=True)
+                               "--turn", trees[label]] + ["--paths"] * args.paths,
+                              capture_output=True, text=True)
         if proc.returncode:
             sys.stderr.write(proc.stderr)
             raise SystemExit(f"turn {label} ({trees[label]}) exited {proc.returncode}")
         row = json.loads(proc.stdout.strip().splitlines()[-1])
         row["label"] = label
+        if args.paths:
+            if args.out:
+                with open(args.out, "a") as fh:
+                    fh.write(json.dumps(row) + "\n")
+            row = {"label": label, "tree": row["tree"], **row["summary"]}
         print(json.dumps(row), flush=True)
         turns.append(row)
     summary = {"card": smi}
+    if args.paths:
+        for label, tree in trees.items():
+            mine = [t for t in turns if t["label"] == label]
+            summary[label] = {"tree": tree, **{k: sorted(t[k] for t in mine) for k in mine[0]
+                                               if k not in ("label", "tree")}}
+        print(json.dumps(summary), flush=True)
+        return
     for label, tree in trees.items():
         mine = [t for t in turns if t["label"] == label]
         summary[label] = {"tree": tree}

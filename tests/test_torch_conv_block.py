@@ -300,12 +300,13 @@ def test_bf16_fold_quality_gate(overfit_setup):  # noqa: F811
     """The slice as a whole: the toy model overfit in JAX (the fixture of
     tests/test_quality_gate.py, 80 steps), carried across, folded at -n 2
     -m 20. The port's bf16 CA trace must reach TM >= 0.75 against JAX's bf16
-    forward and against the port's own fp32 fold."""
+    forward (with the subspace MDS, as both bf16 engines run it) and against
+    the port's own fp32 fold."""
     jax_params, aln = overfit_setup
     params = params_from_jax(jax.tree.map(np.asarray, jax_params))
     ours, _ = _port_fold(params, aln, "bf16")
     port_fp32, _ = _port_fold(params, aln, "fp32")
-    jax_bf16 = _jax_fold(jax_params, aln, compute_dtype=jnp.bfloat16, mds_impl="eigh")
+    jax_bf16 = _jax_fold(jax_params, aln, compute_dtype=jnp.bfloat16, mds_impl="subspace")
     for name, ref in (("JAX bf16", jax_bf16), ("port fp32", port_fp32)):
         score = tm_score(ours[:, 1], ref[:, 1])
         assert score["tm"] >= TM_FLOOR, (f"port bf16 vs {name}: TM {score['tm']:.3f} < "

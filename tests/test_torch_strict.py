@@ -142,9 +142,9 @@ def mds_spy(monkeypatch):
     seen = []
     orig = gruresnet.mds_coords
 
-    def spy(dm, nres, n_dims=8, canonical_signs=True):
+    def spy(dm, nres, n_dims=8, canonical_signs=True, **kw):
         seen.append(bool(canonical_signs))
-        return orig(dm, nres, n_dims, canonical_signs=canonical_signs)
+        return orig(dm, nres, n_dims, canonical_signs=canonical_signs, **kw)
 
     monkeypatch.setattr(gruresnet, "mds_coords", spy)
     return seen
@@ -181,8 +181,8 @@ def test_strict_fold_matches_jax(tree, params, example, monkeypatch):
     recorded = []
     orig = gruresnet.mds_coords
 
-    def record(dm, nr, n_dims=8, canonical_signs=True):
-        out = orig(dm, nr, n_dims, canonical_signs=canonical_signs)
+    def record(dm, nr, n_dims=8, canonical_signs=True, **kw):
+        out = orig(dm, nr, n_dims, canonical_signs=canonical_signs, **kw)
         recorded.append((canonical_signs, out[0].numpy().copy()))
         return out
 
