@@ -19,6 +19,7 @@ import time
 
 from .config import FoldConfig
 from .engine.fold import DEFAULT_ITERATIONS, DEFAULT_MINSTEPS, aln_to_coords
+from .utils import obs
 from .utils.pdb import format_pdb
 
 
@@ -132,6 +133,7 @@ def _run_batch(args, parser) -> None:
 def run_dmpfold(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
+    obs.trace_from_env()  # DMPFOLD2_TPU_TRACE=<path>: spans to a Chrome trace at exit
     if len(args.input_file) > 1 and args.out_dir is None:
         parser.error("multiple inputs need -o/--out-dir (one PDB per target)")
     if args.out_dir is not None:

@@ -37,6 +37,7 @@ from ..kernels import _build
 from ..models import gruresnet
 from ..parallel.sharding import SeqShards
 from ..utils import aln as aln_io
+from ..utils import obs
 from ..utils import pdb as pdb_io
 from ..weights import load_npz, load_pt, params_to
 from .buckets import bucket_shape
@@ -104,17 +105,19 @@ def pair_features(alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor,
     features [DCA 442 | dmap 1], one target at a time (the (21L)^2 DCA
     inverse of a whole batch at once would need B times the memory; a single
     sequence gives zero DCA), each target's DCA written straight into its
-    slice. ``dca_method`` as :func:`resolve_dca_method` gives it."""
-    batch, _, l_pad = alnmat.shape
-    x2 = torch.empty((batch, l_pad, l_pad, NUM_DCA_CHANNELS + 1), device=alnmat.device)
-    for b in range(batch):
-        oh = msa_one_hot(alnmat[b], nseqs[b], nres[b])
-        w = reweight(oh, nres[b])
-        dca_or_zero(oh, w, nseqs[b], nres[b], method=dca_method,
-                    out=x2[b, :, :, :NUM_DCA_CHANNELS])
-        del oh, w
-    x2[..., NUM_DCA_CHANNELS] = dmap_channel
-    return x2
+    slice. ``dca_method`` as :func:`resolve_dca_method` gives it. The
+    tracer's span ``features``."""
+    with obs.span("features"):
+        batch, _, l_pad = alnmat.shape
+        x2 = torch.empty((batch, l_pad, l_pad, NUM_DCA_CHANNELS + 1), device=alnmat.device)
+        for b in range(batch):
+            oh = msa_one_hot(alnmat[b], nseqs[b], nres[b])
+            w = reweight(oh, nres[b])
+            dca_or_zero(oh, w, nseqs[b], nres[b], method=dca_method,
+                        out=x2[b, :, :, :NUM_DCA_CHANNELS])
+            del oh, w
+        x2[..., NUM_DCA_CHANNELS] = dmap_channel
+        return x2
 
 
 def fold_padded_batch(params, alnmat: torch.Tensor, nseqs, nres, dmap_channel: torch.Tensor,
@@ -233,9 +236,10 @@ class Folder:
 
         ``iterations`` may be ``"auto"``: recycle until the best mean
         confidence has not improved for 2 recycles, at most
-        ``AUTO_ITERATIONS_CAP``.
+        ``AUTO_ITERATIONS_CAP``. The tracer's unit ``fold``.
         """
-        coords, confs, _ = self.fold_async(alnmat, template_ca, iterations, minsteps)()
+        with obs.unit("fold", self.device):
+            coords, confs, _ = self.fold_async(alnmat, template_ca, iterations, minsteps)()
         return coords, confs
 
     def fold_async(self, alnmat: np.ndarray, template_ca: np.ndarray | None = None,
@@ -256,14 +260,21 @@ class Folder:
         aln_p, dmap = pad_target(alnmat, template_ca,
                                  *bucket_shape(nseqs, nres, self.use_buckets))
         with torch.inference_mode():
+            with obs.wait("upload"):
+                aln_d = torch.from_numpy(aln_p).to(self.device)
+            with obs.wait("upload"):
+                dmap_d = torch.from_numpy(dmap).to(self.device)
             coords, confs, used = fold_padded(
-                self.params, torch.from_numpy(aln_p).to(self.device), nseqs, nres,
-                torch.from_numpy(dmap).to(self.device), nloops, max(int(minsteps), 0),
+                self.params, aln_d, nseqs, nres, dmap_d, nloops, max(int(minsteps), 0),
                 adaptive=adaptive, precision=self.precision, dca_method=self.dca_method,
                 seq_row=self.seq_row)
 
         def fetch():
-            return coords[:nres].cpu().numpy(), confs[:nres].cpu().numpy(), used
+            with obs.wait("fetch"):
+                coords_h = coords[:nres].cpu()
+            with obs.wait("fetch"):
+                confs_h = confs[:nres].cpu()
+            return coords_h.numpy(), confs_h.numpy(), used
 
         return fetch
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import obs
+
 NUM_DCA_CLASSES = 21  # 20 aa + merged ambiguous/gap class
 
 
@@ -32,7 +34,9 @@ def reweight(msa1hot: torch.Tensor, nres: int, cutoff: float = 0.8) -> torch.Ten
     id_mtx = flat @ flat.T
     # the threshold is rounded in float32, as the JAX package rounds it
     id_min = torch.tensor(float(nres), dtype=torch.float32) * cutoff
-    neighbors = (id_mtx > id_min.to(flat.device)).float().sum(dim=-1)
+    with obs.wait("reweight"):  # a blocking copy to the device
+        id_min = id_min.to(flat.device)
+    neighbors = (id_mtx > id_min).float().sum(dim=-1)
     row_valid = flat.sum(dim=-1) > 0
     return torch.where(row_valid, 1.0 / neighbors.clamp(min=1.0),
                        torch.zeros_like(neighbors))

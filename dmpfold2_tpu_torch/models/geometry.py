@@ -13,6 +13,7 @@ import math
 import torch
 
 from ..ops.eigh import subspace_topk
+from ..utils import obs
 
 VDW_DIST = 3.0
 COV_DIST = 3.78
@@ -92,7 +93,8 @@ def mds_coords(dm: torch.Tensor, nres, n_dims: int = 8,
     if impl == "subspace":
         w8, v8 = subspace_topk(gram, k=n_dims)
     else:
-        w, v = torch.linalg.eigh(gram)
+        with obs.wait("eigh"):  # eigh reads its status on the host
+            w, v = torch.linalg.eigh(gram)
         w8, v8 = w[..., -n_dims:], v[..., -n_dims:]
     w8 = w8.clamp(min=1e-8)
     if canonical_signs:

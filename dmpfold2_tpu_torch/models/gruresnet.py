@@ -46,6 +46,7 @@ from . import gru
 from .geometry import calpha_to_main_chain, mds_coords, refine_coords
 from ..features.dca import NUM_DCA_CHANNELS
 from ..parallel.sharding import SeqShards, scatter_rows
+from ..utils import obs
 from ..weights import params_to
 from .trunk import PackedTrunk, pack_bf16, trunk_apply, trunk_apply_bf16, trunk_params
 
@@ -172,69 +173,90 @@ def forward_inference(params, alnmat: torch.Tensor, x2: torch.Tensor, nseqs, nre
     Returns:
       coords (B, l_pad, 5, 3), confidences (B, l_pad), and the recycles run.
       Each target keeps the pass with its own best mean confidence.
+
+    The tracer's spans (``utils/obs.py``), in order: ``embed``,
+    ``pair_input``, then per pass ``trunk``, ``mds`` and ``coord`` (with the
+    pass ``index``), the first ``refine``, one ``recycle`` per recycle (the
+    dmap, that pass's ``trunk``, ``mds`` and ``coord``, the best-pass
+    update), the second ``refine`` and ``complete``.
     """
     batch, n_rows, l_pad = alnmat.shape
     if adaptive_recycle and batch != 1:
         raise ValueError("adaptive recycling (-n auto) folds one target at a time")
     device = alnmat.device
-    nres_t = torch.tensor([int(n) for n in nres], dtype=torch.int32, device=device)
-    nseqs_t = torch.tensor([int(n) for n in nseqs], dtype=torch.int32, device=device)
-    row_mask = (torch.arange(l_pad, device=device)[None, :] < nres_t[:, None]).float()  # (B, L)
-    pair_mask = row_mask[:, :, None] * row_mask[:, None, :]                           # (B, L, L)
-    nres_f = nres_t.float()
+    with obs.span("embed"):
+        with obs.wait("sizes"):  # a blocking copy to the device
+            nres_t = torch.tensor([int(n) for n in nres], dtype=torch.int32, device=device)
+        with obs.wait("sizes"):
+            nseqs_t = torch.tensor([int(n) for n in nseqs], dtype=torch.int32, device=device)
+        row_mask = (torch.arange(l_pad, device=device)[None, :] < nres_t[:, None]).float()
+        pair_mask = row_mask[:, :, None] * row_mask[:, None, :]                       # (B, L, L)
+        nres_f = nres_t.float()
 
-    # MSA embedding: the vertical GRU over rows, columns = B * L residue
-    # positions, each frozen at its own target's depth; then the horizontal
-    # biGRU over residues, batch = targets
-    aln_cols = alnmat.to(torch.int32).permute(1, 0, 2).reshape(n_rows, batch * l_pad)
-    seq_embed = vgru.vgru_final_cols(params["vgru"], aln_cols.contiguous(),
-                                     nseqs_t.repeat_interleave(l_pad))               # (B*L, 512)
-    hin = seq_embed.reshape(batch, l_pad, -1).transpose(0, 1)                        # (L, B, 512)
-    mat1d = rgru.bigru_stack(params["hgru"], hin, nres_t).transpose(0, 1)
-    mat1d = mat1d * row_mask[..., None]                                               # (B, L, 512)
+        # MSA embedding: the vertical GRU over rows, columns = B * L residue
+        # positions, each frozen at its own target's depth; then the horizontal
+        # biGRU over residues, batch = targets
+        aln_cols = alnmat.to(torch.int32).permute(1, 0, 2).reshape(n_rows, batch * l_pad)
+        seq_embed = vgru.vgru_final_cols(params["vgru"], aln_cols.contiguous(),
+                                         nseqs_t.repeat_interleave(l_pad))           # (B*L, 512)
+        hin = seq_embed.reshape(batch, l_pad, -1).transpose(0, 1)                    # (L, B, 512)
+        mat1d = rgru.bigru_stack(params["hgru"], hin, nres_t).transpose(0, 1)
+        mat1d = mat1d * row_mask[..., None]                                           # (B, L, 512)
 
     trunks = params["trunk"]
     if seq is None:
         seq, trunks = SeqShards.split([device], l_pad), [trunks]
-    trunk_pass = _trunk_pass(trunks, mat1d, x2, pair_mask, nres_t, seq, precision == "bf16")
+    with obs.span("pair_input"):
+        trunk_pass = _trunk_pass(trunks, mat1d, x2, pair_mask, nres_t, seq, precision == "bf16")
 
-    def run_iteration(dmap_channel):
-        out = trunk_pass(dmap_channel)
-        dm = out[..., 0]
-        conf = (out[..., 1] * row_mask[:, None, :]).sum(dim=2) / nres_f[:, None]
-        mds = mds_coords(dm, nres_t, canonical_signs=canonical_signs, impl=mds_impl)  # (B, L, 8)
-        coordembed = torch.cat([mat1d, mds], dim=2).transpose(0, 1)                  # (L, B, 520)
-        gru_out = rgru.bigru_stack(params["coord_gru"], coordembed, nres_t).transpose(0, 1)
-        return gru_out @ params["coord_fc"], conf                             # (B, L, 3), (B, L)
+    def run_iteration(dmap_channel, index):
+        with obs.span("trunk", index=index):
+            out = trunk_pass(dmap_channel)
+            dm = out[..., 0]
+            conf = (out[..., 1] * row_mask[:, None, :]).sum(dim=2) / nres_f[:, None]
+        with obs.span("mds", index=index):
+            mds = mds_coords(dm, nres_t, canonical_signs=canonical_signs,
+                             impl=mds_impl)                                           # (B, L, 8)
+        with obs.span("coord", index=index):
+            coordembed = torch.cat([mat1d, mds], dim=2).transpose(0, 1)              # (L, B, 520)
+            gru_out = rgru.bigru_stack(params["coord_gru"], coordembed, nres_t).transpose(0, 1)
+            return gru_out @ params["coord_fc"], conf                         # (B, L, 3), (B, L)
 
     def mean_conf(conf):
         return (conf * row_mask).sum(dim=1) / nres_f                                  # (B,)
 
     # initial pass: dmap channel from x2 (template distances or -1 fill)
-    ca, conf = run_iteration(x2[..., -1])
-    ca = refine.refine_coords_batched(ca.contiguous(), refine_steps, nres_t)
-    best_mean, best_conf, best_coords = mean_conf(conf), conf, ca
+    ca, conf = run_iteration(x2[..., -1], 0)
+    with obs.span("refine", index=0):
+        ca = refine.refine_coords_batched(ca.contiguous(), refine_steps, nres_t)
+        best_mean, best_conf, best_coords = mean_conf(conf), conf, ca
 
     # recycling: predicted distances fed back as the last input channel. The
     # best pass per target is tracked on the device; only -n auto reads it
     # on the host.
     iterations, stall = 0, 0
     while iterations < nloops and stall < adaptive_patience:
-        diffs = ca[:, :, None, :] - ca[:, None, :, :]
-        dmap = torch.sqrt(torch.clamp(diffs.square().sum(dim=3), min=1e-8)) * pair_mask
-        ca, conf = run_iteration(dmap)
-        mean_new = mean_conf(conf)
-        better = mean_new > best_mean
-        best_mean = torch.where(better, mean_new, best_mean)
-        best_conf = torch.where(better[:, None], conf, best_conf)
-        best_coords = torch.where(better[:, None, None], ca, best_coords)
-        iterations += 1
-        if adaptive_recycle:
-            stall = 0 if bool(better[0]) else stall + 1
+        with obs.span("recycle", index=iterations + 1):
+            diffs = ca[:, :, None, :] - ca[:, None, :, :]
+            dmap = torch.sqrt(torch.clamp(diffs.square().sum(dim=3), min=1e-8)) * pair_mask
+            ca, conf = run_iteration(dmap, iterations + 1)
+            mean_new = mean_conf(conf)
+            better = mean_new > best_mean
+            best_mean = torch.where(better, mean_new, best_mean)
+            best_conf = torch.where(better[:, None], conf, best_conf)
+            best_coords = torch.where(better[:, None, None], ca, best_coords)
+            iterations += 1
+            if adaptive_recycle:
+                with obs.wait("adaptive"):
+                    improved = bool(better[0])
+                stall = 0 if improved else stall + 1
 
-    best_coords = refine.refine_coords_batched(best_coords.contiguous(), refine_steps, nres_t)
-    coords = calpha_to_main_chain(best_coords, nres_t)
-    return coords, torch.sigmoid(best_conf), iterations
+    with obs.span("refine", index=1):
+        best_coords = refine.refine_coords_batched(best_coords.contiguous(), refine_steps,
+                                                   nres_t)
+    with obs.span("complete"):
+        coords = calpha_to_main_chain(best_coords, nres_t)
+        return coords, torch.sigmoid(best_conf), iterations
 
 
 def _bf16_input(packed, pair: torch.Tensor, x2: torch.Tensor) -> tuple[torch.Tensor, int]:

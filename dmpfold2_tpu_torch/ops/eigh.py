@@ -36,6 +36,8 @@ import threading
 import numpy as np
 import torch
 
+from ..utils import obs
+
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _THREEFRY_PARITY = 0x1BD11BDA
 
@@ -113,10 +115,12 @@ def start_basis(l: int, q: int, device=None) -> torch.Tensor:
         with _basis_lock:
             basis = _basis_cache.get(key)
             if basis is None:
-                with torch.inference_mode(False):  # a plain tensor, also when made in a fold
+                with torch.inference_mode(False), obs.wait("start_basis"):
+                    # a plain tensor, also when made in a fold
                     basis = torch.from_numpy(_start_basis_np(l, q).copy()).to(device)
                 if device.type == "cuda":
-                    torch.cuda.synchronize(device)
+                    with obs.wait("start_basis"):
+                        torch.cuda.synchronize(device)
                 _basis_cache[key] = basis
     return basis
 
@@ -144,5 +148,6 @@ def subspace_topk(m: torch.Tensor, k: int = 8, q: int = 32, iters: int = 4,
         qb = torch.linalg.qr(m @ (m @ qb)).Q  # M^2: converge by |w|
     # Rayleigh-Ritz on M itself: the candidates in algebraic order
     t = qb.mT @ (m @ qb)
-    w, u = torch.linalg.eigh(0.5 * (t + t.mT))
+    with obs.wait("eigh"):  # eigh reads its status on the host
+        w, u = torch.linalg.eigh(0.5 * (t + t.mT))
     return w[..., -k:], qb @ u[..., -k:]

@@ -62,6 +62,7 @@ import torch
 
 from ..engine.buckets import bucket_shape
 from ..engine.fold import Folder, fold_padded_batch, pad_target
+from ..utils import obs
 from ..utils.obs import Counters, global_counters, log_target
 from .mesh import Mesh, replicate_result
 
@@ -106,14 +107,22 @@ def _fold_batch(folder: Folder, aln_b: np.ndarray, dmap_b: np.ndarray, nseqs, nr
                 iterations: int, minsteps: int):
     """One batch on ``folder``'s device (or mesh row), on the calling
     thread's current streams: upload, fold, fetch -> ((B, l_pad, 5, 3),
-    (B, l_pad)) numpy."""
+    (B, l_pad)) numpy. Each blocking copy waits for the stream."""
     dev = folder.device
     with torch.inference_mode():
+        with obs.wait("upload"):
+            aln = torch.from_numpy(aln_b).to(dev)
+        with obs.wait("upload"):
+            dmap = torch.from_numpy(dmap_b).to(dev)
         coords, confs, _ = fold_padded_batch(
-            folder.params, torch.from_numpy(aln_b).to(dev), nseqs, nres,
-            torch.from_numpy(dmap_b).to(dev), max(int(iterations), 0), max(int(minsteps), 0),
-            precision=folder.precision, dca_method=folder.dca_method, seq_row=folder.seq_row)
-        return coords.cpu().numpy(), confs.cpu().numpy()
+            folder.params, aln, nseqs, nres, dmap, max(int(iterations), 0),
+            max(int(minsteps), 0), precision=folder.precision, dca_method=folder.dca_method,
+            seq_row=folder.seq_row)
+        with obs.wait("fetch"):
+            coords = coords.cpu()
+        with obs.wait("fetch"):
+            confs = confs.cpu()
+        return coords.numpy(), confs.numpy()
 
 
 # the CUDA devices on which this process made its first linear-algebra call
@@ -147,16 +156,24 @@ class _Shard:
         for _ in range(depth):
             self.streams.put([torch.cuda.Stream(d) for d in cuda])
 
-    def run(self, *args):
-        """A worker's job: one batch on a free set of streams of this shard."""
+    def run(self, batch_span, queue_span, *args):
+        """A worker's job: one batch on a free set of streams of this shard.
+        Returns (the batch's results, the host times (``perf_counter_ns``)
+        at which the streams were held and the fetch ended); the tracer's
+        ``batch.queue`` span ends at the first, and its ``fold`` span (under
+        the batch's) holds the upload, fold and fetch."""
         streams = self.streams.get()
+        held = time.perf_counter_ns()
+        obs.tracer.end(queue_span, at=held)
         try:
             with contextlib.ExitStack() as ctx:
                 for stream in streams:  # each makes its device current
                     ctx.enter_context(torch.cuda.stream(stream))
                 if streams:  # the fold starts on the row's first device
                     ctx.enter_context(torch.cuda.device(streams[0].device))
-                return _fold_batch(self.folder, *args)
+                with obs.tracer.adopt(batch_span, self.folder.device), obs.span("fold"):
+                    out = _fold_batch(self.folder, *args)
+                return out, held, time.perf_counter_ns()
         finally:
             self.streams.put(streams)
 
@@ -255,7 +272,12 @@ class BatchFolder:
         def dispatch(bucket, chunk):
             """Pad this process's shards of one batch (a partial batch repeats
             its last target) and hand each to its shard's workers; does not
-            wait for the device. A shard of padding alone is not folded."""
+            wait for the device. A shard of padding alone is not folded.
+            Starts the counters' clock and the batch's root span (``batch``,
+            ended in ``retire``)."""
+            t_start = time.perf_counter()
+            self.counters.start()
+            root = obs.tracer.begin("batch", bucket=list(bucket), size=len(chunk))
             take = list(chunk) + [chunk[-1]] * (batch - len(chunk))
             shards = []
             for j, shard in enumerate(self._shards):
@@ -266,12 +288,16 @@ class BatchFolder:
                 try:
                     aln_b, dmap_b, nseqs_b, nres_b = _pad_batch(
                         [targets[i] for i in take[lo:lo + per]], *bucket)
-                    rec.update(nseqs_b=nseqs_b, nres_b=nres_b, future=shard.executor.submit(
-                        shard.run, aln_b, dmap_b, nseqs_b, nres_b, iterations, minsteps))
+                    submitted = time.perf_counter_ns()
+                    rec.update(nseqs_b=nseqs_b, nres_b=nres_b, submitted=submitted,
+                               future=shard.executor.submit(
+                                   shard.run, root,
+                                   obs.tracer.child(root, "batch.queue", at=submitted),
+                                   aln_b, dmap_b, nseqs_b, nres_b, iterations, minsteps))
                 except Exception as exc:  # noqa: BLE001 - dispatch failure: requeue singly
                     rec["error"] = exc
                 shards.append(rec)
-            return dict(bucket=bucket, chunk=chunk, shards=shards, t_start=time.perf_counter())
+            return dict(bucket=bucket, chunk=chunk, shards=shards, t_start=t_start, span=root)
 
         def requeue(bucket, chunk, folder, exc):
             """A batch (shard) failed: fold each target alone, on the same
@@ -298,7 +324,7 @@ class BatchFolder:
                 exc = sh.get("error")
                 if exc is None:
                     try:
-                        coords, confs = sh["future"].result()
+                        (coords, confs), held, done = sh["future"].result()
                     except Exception as err:  # noqa: BLE001 - failure tolerance: requeue
                         exc = err
                 if exc is not None:
@@ -310,16 +336,20 @@ class BatchFolder:
                         results[ti] = (coords[bi, :nr], confs[bi, :nr])
                         self.counters.record(nr)
                         if self.verbose:
-                            # per-target time = batch wall-clock / batch size; under
-                            # pipelining it spans dispatch -> fetch (queue wait included)
+                            # per-target time = the worker's fold / batch size; the wait
+                            # for a worker (queue_s) and dispatch -> retire apart
                             log_target(f"target[{ti}]", sh["nseqs_b"][bi], nr, rec["bucket"],
-                                       elapsed / batch, float(confs[bi, :nr].mean()),
+                                       (done - held) / 1e9 / batch,
+                                       float(confs[bi, :nr].mean()),
+                                       queue_s=round((held - sh["submitted"]) / 1e9, 4),
+                                       fold_s=round((done - held) / 1e9, 4),
                                        batch_seconds=round(elapsed, 4), batch_size=batch)
                 local += [results[ti] for ti in sh["chunk"]]
             if gather:
                 # the processes' slots are contiguous in rank order
                 for ti, res in zip(rec["chunk"], replicate_result(local)):
                     results[ti] = res
+            obs.tracer.end(rec["span"])
 
         work = [(bucket, idxs[start:start + batch])
                 for bucket, idxs in groups.items()

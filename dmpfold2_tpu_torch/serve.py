@@ -45,6 +45,7 @@ from .engine.fold import DEFAULT_ITERATIONS, DEFAULT_MINSTEPS
 from .parallel.stream import BatchFolder, Target
 from .utils import aln as aln_io
 from .utils import pdb as pdb_io
+from .utils import obs
 from .utils.obs import Counters
 
 # the tiny alignment folded by the first /healthz probe of a service that
@@ -142,6 +143,7 @@ class FoldService:
             for bs in self._batch_ladder():
                 self.batcher.batch_size = bs
                 self.batcher.fold_many([Target(alnmat=aln)] * 2, iterations=1, minsteps=1)
+        self.counters.reset()  # /stats counts served targets from the first dispatch on
         self._ready.set()
 
     def ready(self) -> bool:
@@ -450,6 +452,7 @@ def main(argv=None):
                          "DATAxSEQ splits each fold's pair trunk by rows over SEQ GPUs; "
                          "'auto' = every visible GPU (with -d cpu: CPU replicas)")
     args = ap.parse_args(argv)
+    obs.trace_from_env()  # DMPFOLD2_TPU_TRACE=<path>: spans to a Chrome trace at exit
     mesh = device = None
     if args.mesh is not None:
         from .parallel.mesh import parse_mesh
