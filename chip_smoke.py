@@ -185,12 +185,12 @@ ITERATIONS, MINSTEPS = 10, 100
 FOLD_REPEATS = 5  # timed folds per engine; the first is the one counted
 EXPECTED_LAUNCHES = {
     "fp32": {"vgru": 1, "rgru": 35, "refine": 2, "conv5x5_maxout": 0, "gemm_maxout": 0,
-             "conv5x5_maxout_diff": 0},
+             "conv5x5_maxout_diff": 0, "block_tail": 0},
     # rgru: one launch per biGRU layer (both directions), hgru's 2 layers and
 # coord_gru's 3 in each of 11 trunk passes: 2 + 11 * 3. 11 trunk passes: one
-# input layer and 16 block convs each
+# input layer and 16 block convs and tails each
     "bf16": {"vgru": 1, "rgru": 35, "refine": 2, "conv5x5_maxout": 176, "gemm_maxout": 11,
-             "conv5x5_maxout_diff": 0},
+             "conv5x5_maxout_diff": 0, "block_tail": 176},
 }
 # fp32_strict is the fp32 engine with the LU DCA and raw signs: the same kernels
 EXPECTED_LAUNCHES["fp32_strict"] = EXPECTED_LAUNCHES["fp32"]
@@ -846,7 +846,8 @@ def _counters():
             "refine": (refine, "launches"),
             "conv5x5_maxout": (conv_block, "conv_launches"),
             "gemm_maxout": (conv_block, "gemm_launches"),
-            "conv5x5_maxout_diff": (conv_block, "conv_argmax_launches")}
+            "conv5x5_maxout_diff": (conv_block, "conv_argmax_launches"),
+            "block_tail": (conv_block, "tail_launches")}
 
 
 def _reset_counters() -> None:
@@ -1225,7 +1226,8 @@ def _batch_kernel_shapes(params, rng) -> dict:
     target, each target the same bits as its own B 1 launch, padding
     untouched), the same bits on a second launch; and its time (CUDA events
     over back-to-back launches, each at least 0.3 ms, so the wrappers' host
-    time hides) and bound. Raises when a check fails."""
+    time hides; the block tail's, 0.15 ms, from the profiler) and bound.
+    Raises when a check fails."""
     from dmpfold2_tpu_torch.kernels import conv_block, refine, rgru, vgru
 
     dev = torch.device("cuda")
@@ -1338,12 +1340,49 @@ def _batch_kernel_shapes(params, rng) -> dict:
                                    reps=20),
                      "bound_ms": b, "bound_by": by}
         del x
+    out["block_tail"] = _block_tail_shape(params, dev, nres_t, l, gen)
     emit({"phase": "batch_kernel_shapes", "rows": out})
     failed = [k for k, row in out.items() if not row["ok"]]
     if failed:
         raise AssertionError(f"kernels differ from their plain versions at the batch shapes: "
                              f"{failed}")
     return out
+
+
+def _block_tail_shape(params, dev, nres_t, l: int, gen) -> dict:
+    """The block tail at the batch shape (B = len(nres_t), L ``l``), block
+    0's packed sSE and cSE weights, a maxout map, a carry and a (scale,
+    shift) as the trunk's: within one bf16 ulp of its plain version, the same
+    bits twice; its device time, its plain version's and its bound (read z,
+    x and the mask, write the carry)."""
+    from dmpfold2_tpu_torch.kernels import conv_block
+    from dmpfold2_tpu_torch.models import trunk
+
+    block = trunk.pack_block_bf16({part: {k: v.to(dev) for k, v in p.items()}
+                                   for part, p in params["trunk"]["blocks"][0].items()})
+    batch = nres_t.shape[0]
+    valid = torch.arange(l, device=dev)[None, :] < nres_t[:, None]
+    mask = (valid[:, :, None] & valid[:, None, :])[..., None].to(torch.bfloat16)
+    shape = (batch, l, l, CWIDTH)
+    z = (torch.randn(shape, device=dev, generator=gen) + 0.5).to(torch.bfloat16)
+    x = (2 * torch.randn(shape, device=dev, generator=gen)).to(torch.bfloat16)
+    scale = 1 + 0.2 * torch.randn((batch, CWIDTH), device=dev, generator=gen)
+    shift = -0.5 * scale + 0.1 * torch.randn((batch, CWIDTH), device=dev, generator=gen)
+    args = (z, x, mask, scale, shift, block["sse_w"], block["sse_b"], block["cse_gate"])
+    got, again = conv_block.block_tail(*args), conv_block.block_tail(*args)
+    ref = conv_block.block_tail_plain(*args)
+    torch.cuda.synchronize()
+    d = (got.float() - ref.float()).abs()
+    ulp = (d / (BF16_ULP * ref.float().abs().clamp(min=1.0))).max().item()
+    same = bool(torch.equal(got.view(torch.int16), again.view(torch.int16)))
+    # about 8 fp32 operations an element; bound by the bytes
+    b, by = bound_ms(8.0 * z.numel(), 2 * (3 * z.numel() + mask.numel()))
+    ms = device_ms(lambda: conv_block.block_tail(*args), "block_tail_kernel", reps=20)
+    return {"shape": f"B {batch}, L {l}, nres {nres_t.tolist()}", "max_abs_err": d.max().item(),
+            "max_err_in_bf16_ulps": ulp, "second_launch_identical": same,
+            "ok": ulp <= 1.0 and same, "ms": ms,
+            "plain_ms": time_ms(lambda: conv_block.block_tail_plain(*args), reps=5),
+            "bound_ms": b, "bound_by": by, "bound_share": b / ms}
 
 
 def _sync_sites(fn) -> list:
@@ -1895,7 +1934,8 @@ def phase_serve(params) -> dict:
     checks["coalesced"] = batching["max_coalesced"] >= 2
     checks["fewer_dispatches_than_requests"] = batching["dispatches"] < batching["requests"]
     checks["launched_every_inference_kernel"] = all(
-        launches[k] > 0 for k in ("vgru", "rgru", "refine", "conv5x5_maxout", "gemm_maxout"))
+        launches[k] > 0 for k in ("vgru", "rgru", "refine", "conv5x5_maxout", "gemm_maxout",
+                                  "block_tail"))
     server.shutdown()
     service.close()
     server.server_close()
@@ -2251,7 +2291,7 @@ def phase_multi(params) -> dict:
     passes = MULTI_ITERATIONS + 1  # one set of launches per shard (EXPECTED_LAUNCHES' rule)
     expected = {"vgru": 2, "rgru": 2 * (2 + 3 * passes), "refine": 2 * 2,
                 "conv5x5_maxout": 2 * BLOCKS * passes, "gemm_maxout": 2 * passes,
-                "conv5x5_maxout_diff": 0}
+                "conv5x5_maxout_diff": 0, "block_tail": 2 * BLOCKS * passes}
     checks["(b) launches: one set per shard"] = launches_b == expected
     for (name, alnmat), res in zip(targets, got_b):
         checks[f"(b) {name} whole"] = all(_fold_checks(res[0], res[1], alnmat).values())
@@ -2583,7 +2623,7 @@ def _seq_fold_compare(params, alnmat, iterations: int, minsteps: int, repeats: i
     trunk_rel = {label: float((out_s[..., ch] - out_u[..., ch]).abs()[valid].max()
                               / out_u[..., ch].abs()[valid].max())
                  for ch, label in ((0, "dmap"), (1, "conf"))}
-    want = {k: (2 * v if k in ("conv5x5_maxout", "gemm_maxout") else v)
+    want = {k: (2 * v if k in ("conv5x5_maxout", "gemm_maxout", "block_tail") else v)
             for k, v in u["launches"].items()}
     # recycling and refinement amplify the head's rounding-level differences
     # (its GEMM's rows differ): unless the folds are the same bits, the
@@ -3119,7 +3159,7 @@ def phase_long(params) -> dict:
     del folder
     passes = LONG_ITERATIONS + 1  # EXPECTED_LAUNCHES' rule
     expected = {"vgru": 1, "rgru": 2 + 3 * passes, "refine": 2, "conv5x5_maxout": 16 * passes,
-                "gemm_maxout": passes, "conv5x5_maxout_diff": 0}
+                "gemm_maxout": passes, "conv5x5_maxout_diff": 0, "block_tail": 16 * passes}
     checks = {**_fold_checks(coords, confs, aln), "launches": launches == expected,
               "vgru": vgru_row["ok"], **{k: row["ok"] for k, row in kernels.items()}}
     flops = fold_flops(n_pad, l_pad, LONG_ITERATIONS, LONG_MINSTEPS)
@@ -3272,9 +3312,8 @@ def _capture_trunk_input(store: list):
 def phase_trunk(capture) -> None:
     """One bf16 trunk pass on PF10963's features (B 1, L 88): wall time per
     pass from CUDA events, and device time by part from torch.profiler over 5
-    passes. Everything that is not one of the two kernels is plain PyTorch:
-    the input layer's norm, the 16 block tails (sSE, gate, residual, mask),
-    the stats reductions and the fp32 head."""
+    passes. Everything that is not one of the three kernels is plain PyTorch:
+    the input layer's norm, the stats reductions and the fp32 head."""
     from torch.profiler import ProfilerActivity, profile
 
     from dmpfold2_tpu_torch.models import trunk
@@ -3285,15 +3324,15 @@ def phase_trunk(capture) -> None:
         for _ in range(reps):
             trunk.trunk_apply_bf16(*capture)
         torch.cuda.synchronize()
-    parts = {"conv5x5_maxout": 0.0, "gemm_maxout": 0.0, "plain": 0.0}
-    launches = {"conv5x5_maxout": 0, "gemm_maxout": 0, "plain": 0}
+    kernels = ("conv5x5_maxout", "gemm_maxout", "block_tail")
+    parts = {**{k: 0.0 for k in kernels}, "plain": 0.0}
+    launches = {**{k: 0 for k in kernels}, "plain": 0}
     for evt in prof.key_averages():
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
             continue
         us = getattr(evt, "self_device_time_total", None)
         us = us if us is not None else getattr(evt, "self_cuda_time_total", 0.0)
-        part = next((k for k in ("conv5x5_maxout", "gemm_maxout") if f"{k}_kernel" in evt.key),
-                    "plain")
+        part = next((k for k in kernels if f"{k}_kernel" in evt.key), "plain")
         parts[part] += us / 1e3 / reps
         launches[part] += evt.count // reps
     busy = sum(parts.values())
@@ -3802,12 +3841,16 @@ def main() -> None:
         launches["train"] = {"conv5x5_maxout_diff": phase_train(params, data_dir)}
         paths["train bf16"] = launches["train"]
         phase_train_cpu(params, data_dir)
+    # the block tail is measured at the batch shapes only
+    rows["block_tail"] = {"name": "block_tail", "route": "cuda",
+                          "source": "dmpfold2_tpu_torch/csrc/block_tail.cu",
+                          **batch_shapes.pop("block_tail")}
     for name, row in rows.items():
         # each kernel's count from the run whose path it carries: the fp32
         # fold (vgru, rgru, refine), the bf16 fold (the two trunk kernels),
         # the training micro-steps (the argmax mode and its backward); and
         # its count in every path that launches it, each counted from 0
-        engine = {"conv5x5_maxout": "bf16", "gemm_maxout": "bf16",
+        engine = {"conv5x5_maxout": "bf16", "gemm_maxout": "bf16", "block_tail": "bf16",
                   "conv5x5_maxout_diff": "train"}.get(name, "fp32")
         row["launches"] = launches[engine][name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items() if c.get(name)}

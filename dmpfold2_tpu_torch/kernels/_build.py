@@ -33,6 +33,7 @@ SIGNATURES = {
     "conv5x5_maxout": {"conv5x5_maxout_stats": [_P] * 6 + [_I] * 7 + [_P],
                        "conv5x5_maxout_argmax": [_P] * 5 + [_I] * 6 + [_P]},
     "gemm_maxout": {"gemm_maxout_stats": [_P] * 6 + [_I] * 6 + [_P]},
+    "block_tail": {"block_tail": [_P] * 9 + [_I] * 4 + [_P]},
 }
 
 _lock = threading.Lock()

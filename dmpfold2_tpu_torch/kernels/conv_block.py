@@ -14,6 +14,10 @@ Replaces three TPU kernels of ``dmpfold2_tpu/kernels/conv_block.py``:
   * ``conv5x5_maxout_diff``, the custom VJP around the argmax mode:
     :class:`Conv5x5MaxoutDiff`.
 
+and adds one the JAX package left to XLA: the bf16 residual block's tail
+(``csrc/block_tail.cu``, :func:`block_tail`): sSE, the norm, the cSE gate,
+the residual and the mask in one pass over the map.
+
 The kernels take bf16 operands with fp32 accumulation and return the bf16
 maxout (channel c = g * pool + p pooled into g; the first maximum wins, which
 does not change the value) with, in stats mode, the fp32 masked sum and sum
@@ -68,6 +72,7 @@ HALO = KSIZE // 2     # rows of each neighbour a slab carries on each side
 conv_launches = 0  # conv5x5_maxout kernel launches (stats mode) since the last reset
 conv_argmax_launches = 0  # conv5x5_maxout kernel launches in argmax mode
 gemm_launches = 0  # gemm_maxout kernel launches since the last reset
+tail_launches = 0  # block_tail kernel launches since the last reset
 
 
 def gemm_k_pad(c_in: int) -> int:
@@ -508,3 +513,63 @@ def normalize(out: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     its per-target (B, C) scale and shift, then masked."""
     y = out.float() * scale[:, None, None, :] + shift[:, None, None, :]
     return (y * mask).to(torch.bfloat16)
+
+
+def block_tail_plain(z: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor,
+                     shift: torch.Tensor, sse_w: torch.Tensor, sse_b: torch.Tensor,
+                     cse_gate: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`block_tail`: sSE reads the raw maxout with
+    scale folded into its weights (rounded to bf16, as JAX does) and shift
+    into its bias; then the cSE gate, residual, mask, with fp32
+    intermediates."""
+    w_eff = (scale * sse_w[None, :]).to(torch.bfloat16)                   # (B, C)
+    s_bias = shift @ sse_w + sse_b[0]                                     # (B,)
+    zf = z.float()
+    s = torch.einsum("bhwc,bc->bhw", zf, w_eff.float()) + s_bias[:, None, None]
+    gate = cse_gate + torch.sigmoid(s)[..., None]
+    y = zf * scale[:, None, None, :] + shift[:, None, None, :]
+    out = (y * gate + x.float()).to(torch.bfloat16)
+    return out * mask
+
+
+def block_tail(z: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor,
+               shift: torch.Tensor, sse_w: torch.Tensor, sse_b: torch.Tensor,
+               cse_gate: torch.Tensor) -> torch.Tensor:
+    """The bf16 residual block's tail (JAX ``trunk._resnet_block_fused_norm``
+    after its conv), NHWC, one kernel launch on the card.
+
+    z (B, R, W, 128) bf16, the conv's maxout; x (B, R, W, 128) bf16, the
+    carry; mask (B, R, W, 1) bf16; scale, shift (B, 128) fp32, the norm's;
+    sse_w (128,), sse_b (1,), cse_gate (128,) fp32, the packed block's ->
+    the next carry, (B, R, W, 128) bf16: ``bf16((z * scale + shift) *
+    (cse_gate + sigmoid(z . bf16(scale * sse_w) + shift . sse_w + sse_b)) +
+    x) * mask``. Per pixel, so R may be any row slab of the map and gives
+    the unsharded rows' bits.
+    """
+    global tail_launches
+    if z.device.type == "cpu":
+        return block_tail_plain(z, x, mask, scale, shift, sse_w, sse_b, cse_gate)
+    if z.dim() != 4 or z.shape[3] != CONV_C_IN:
+        raise ValueError(f"block_tail: z must be (B, R, W, {CONV_C_IN}); got {tuple(z.shape)}")
+    batch, rows, width, c = z.shape
+    dev = z.device
+    _check("block_tail: z", z, torch.bfloat16, z.shape, dev)
+    _check("block_tail: x", x, torch.bfloat16, z.shape, dev)
+    _check("block_tail: mask", mask, torch.bfloat16, (batch, rows, width, 1), dev)
+    for name, t, shape in (("scale", scale, (batch, c)), ("shift", shift, (batch, c)),
+                           ("sse_w", sse_w, (c,)), ("sse_b", sse_b, (1,)),
+                           ("cse_gate", cse_gate, (c,))):
+        _check(f"block_tail: {name}", t, torch.float32, shape, dev)
+    if batch > 65535:
+        raise ValueError(f"block_tail: need B <= 65535 (got {batch})")
+    out = torch.empty_like(z)
+    fn = _build.load("block_tail")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(z.data_ptr(), x.data_ptr(), mask.data_ptr(), scale.data_ptr(),
+                 shift.data_ptr(), sse_w.data_ptr(), sse_b.data_ptr(), cse_gate.data_ptr(),
+                 out.data_ptr(), batch, rows, width, c, stream)
+    torch.cuda.check_error(err)
+    with _build.count_lock:
+        tail_launches += 1
+    return out

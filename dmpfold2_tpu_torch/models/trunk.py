@@ -11,8 +11,8 @@ convolutions run in full fp32: the fp32 engine turns TF32 off
 (``engine/fold.py``), since cuDNN convolutions default to TF32.
 
 The bf16 engine (:func:`trunk_apply_bf16`, weights from :func:`pack_bf16`)
-runs the input layer and the 16 block convs through the hand-written kernels
-of ``kernels/conv_block.py``.
+runs the input layer, the 16 block convs and their tails through the
+hand-written kernels of ``kernels/conv_block.py``.
 
 Both take the map as a list of row blocks over a
 ``parallel.sharding.SeqShards`` (residue-axis sharding), each block on its
@@ -94,9 +94,10 @@ def trunk_params(gen: torch.Generator, in_channels: int = TRUNK_IN_CHANNELS,
 #
 # Counterpart of the bf16 path of dmpfold2_tpu/models/trunk.py with
 # fused_conv="norm": the input layer through gemm_maxout, each block through
-# conv5x5_maxout in stats mode and the block tail of _resnet_block_fused_norm,
-# the head in fp32. Maps stay NHWC and contiguous (the implicit GEMM's K =
-# (dy, dx, c_in) is contiguous in c_in); activations between layers are bf16.
+# conv5x5_maxout in stats mode and block_tail (the tail of
+# _resnet_block_fused_norm), the head in fp32. Maps stay NHWC and contiguous
+# (the implicit GEMM's K = (dy, dx, c_in) is contiguous in c_in); activations
+# between layers are bf16.
 
 
 @dataclass
@@ -189,18 +190,11 @@ def resnet_block_fused_norm(blocks: list, xs: list, masks: list, nres: list,
 def _fused_tail(p, z: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor,
                 shift: torch.Tensor) -> torch.Tensor:
     """The block tail from the conv's bf16 maxout ``z`` and the norm's
-    (scale, shift): sSE reads the raw maxout with scale folded into its
-    weights (rounded to bf16, as JAX does) and shift into its bias; then the
-    cSE gate, residual, mask. Per pixel, so a row slab gives the unsharded
+    (scale, shift): sSE, the cSE gate, residual and mask in one launch of
+    ``conv_block.block_tail``. Per pixel, so a row slab gives the unsharded
     rows' bits."""
-    w_eff = (scale * p["sse_w"][None, :]).to(torch.bfloat16)             # (B, C)
-    s_bias = shift @ p["sse_w"] + p["sse_b"][0]                           # (B,)
-    zf = z.float()
-    s = torch.einsum("bhwc,bc->bhw", zf, w_eff.float()) + s_bias[:, None, None]
-    gate = p["cse_gate"] + torch.sigmoid(s)[..., None]
-    y = zf * scale[:, None, None, :] + shift[:, None, None, :]
-    out = (y * gate + x.float()).to(torch.bfloat16)
-    return out * mask
+    return conv_block.block_tail(z, x, mask, scale, shift, p["sse_w"], p["sse_b"],
+                                 p["cse_gate"])
 
 
 def trunk_apply_bf16(packed: list, xs: list, masks: list, nres: torch.Tensor,

@@ -355,7 +355,7 @@ def test_batch_on_card_launches_once_per_batch(precision):
 
     counters = {"vgru": (vgru, "launches"), "rgru": (rgru, "launches"),
                 "refine": (refine, "launches"), "conv": (conv_block, "conv_launches"),
-                "gemm": (conv_block, "gemm_launches")}
+                "gemm": (conv_block, "gemm_launches"), "tail": (conv_block, "tail_launches")}
 
     def counted(fn):
         for mod, attr in counters.values():
@@ -374,6 +374,7 @@ def test_batch_on_card_launches_once_per_batch(precision):
     assert batch_counts["vgru"] == 1 and batch_counts["rgru"] == 2 + 3 * 3
     assert batch_counts["refine"] == 2
     assert batch_counts["conv"] == (6 if precision == "bf16" else 0)
+    assert batch_counts["tail"] == batch_counts["conv"]  # one tail a block
     for t, (coords, confs) in zip(targets, results):
         assert coords.shape == (t.alnmat.shape[1], 5, 3) and np.isfinite(coords).all()
     if precision == "fp32":
